@@ -1,0 +1,225 @@
+"""System facade for RGBD tracking with keyframe-rate local mapping (port
+of the RGBD subset of `eao_fusion_tpu/pipeline/system.py`).
+
+The host sequences the per-frame `track_frame`, the keyframe-rate
+`insert_keyframe_rgbd` and `local_mapping_step`. Planes, objects, loop
+closing, monocular and stereo input, the online detector, and keyframe
+compaction / eviction come with later slices of the port: a config or a
+call that needs them raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from eao_fusion_tpu_torch import DeviceLike, resolve_device
+from eao_fusion_tpu_torch.config import SystemConfig
+from eao_fusion_tpu_torch.frontend import extractor
+from eao_fusion_tpu_torch.mapping import map_state as ms
+from eao_fusion_tpu_torch.ops import lie
+from eao_fusion_tpu_torch.pipeline import local_mapping, tracking
+from eao_fusion_tpu_torch.types import FrameFeatures
+
+# share of the keyframe table at which the JAX package compacts or evicts
+# keyframes (`System._maybe_compact_keyframes`)
+KF_COMPACTION_SHARE = 0.9
+
+
+def insert_keyframe_rgbd(m: ms.MapState, feats: FrameFeatures,
+                         pose: torch.Tensor, kp_pt: torch.Tensor,
+                         frame_id: int, timestamp: float, *,
+                         cfg: SystemConfig, is_init: bool = False,
+                         by_obj: bool = False) -> ms.MapState:
+    """Keyframe insertion + RGBD point creation + stat refresh. At init
+    every depth point spawns a landmark; afterwards only close points
+    without an association do."""
+    cam = (cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy)
+    m, slot = ms.insert_keyframe(m, feats, pose, frame_id, timestamp, kp_pt,
+                                 by_obj=by_obj)
+    max_depth = 1e9 if is_init else float(cfg.camera.depth_threshold)
+    m = ms.create_points_from_depth(m, slot, feats, pose, kp_pt, max_depth,
+                                    cam, frame_id,
+                                    scale_factor=cfg.orb.scale_factor,
+                                    n_levels=cfg.orb.n_levels)
+    m = ms.refresh_obs_rows(m, torch.tensor([slot], device=pose.device))
+    return ms.update_point_stats(m)
+
+
+def _check_slice(cfg: SystemConfig) -> None:
+    unported = [name for name, on in (
+        ("use_planes", cfg.use_planes), ("use_objects", cfg.use_objects),
+        ("use_loop_closing", cfg.use_loop_closing),
+        ("semantic_online", cfg.semantic_online),
+        ("sensor != 'rgbd'", cfg.sensor != "rgbd")) if on]
+    if unported:
+        raise NotImplementedError(
+            "not ported yet (RGBD tracking + local mapping only): "
+            + ", ".join(unported))
+
+
+class System:
+    """Feed RGBD frames, read poses and the trajectory. Runs on `cuda`
+    unless `device` names another; with no card and no device named it
+    raises."""
+
+    def __init__(self, cfg: Optional[SystemConfig] = None,
+                 device: DeviceLike = None):
+        self.cfg = cfg or SystemConfig()
+        _check_slice(self.cfg)
+        self.device = resolve_device(device)
+        self.map = ms.empty_map(self.cfg, self.device)
+        self.track = tracking.init_track_state(self.cfg, self.device)
+        self.trajectory: List[np.ndarray] = []
+        self.timestamps: List[float] = []
+        self._traj_refs: List = []
+        self.frame_id = 0
+        self.n_keyframes = 0
+        self.diags: List[dict] = []
+        self.n_resets = 0
+        self.n_pt_compactions = 0
+
+    def reset(self) -> None:
+        """Clear the map and tracking state; the trajectory is kept, with
+        past entries frozen at their recorded poses."""
+        self.map = ms.empty_map(self.cfg, self.device)
+        self.track = tracking.init_track_state(self.cfg, self.device)
+        self.n_keyframes = 0
+        self._traj_refs = [(-1, raw) for raw, _ in
+                           zip(self.trajectory, self._traj_refs)]
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    def process_frame(self, gray: np.ndarray,
+                      depth: Optional[np.ndarray] = None,
+                      timestamp: float = 0.0, boxes=None,
+                      initial_pose: Optional[np.ndarray] = None,
+                      right=None) -> np.ndarray:
+        """Track one RGBD frame; returns the estimated Tcw [7]."""
+        if depth is None or right is not None:
+            raise NotImplementedError(
+                "only RGBD input is ported (monocular and stereo come with "
+                "a later slice)")
+        cfg = self.cfg
+        feats = extractor.extract_features(
+            self._tensor(gray), self._tensor(depth), orb_cfg=cfg.orb,
+            cam_cfg=cfg.camera, with_depth=True)
+
+        if int(self.track.status) == tracking.STATUS_UNINIT:
+            pose = self._tensor(initial_pose if initial_pose is not None
+                                else [1, 0, 0, 0, 0, 0, 0])
+            n_depth = int(((feats.depth > 0) & feats.valid).sum())
+            # 500-point gate of StereoInitialization, scaled to the budget
+            if n_depth >= min(500, cfg.orb.max_keypoints // 2):
+                kp_pt = torch.full((cfg.orb.max_keypoints,), -1,
+                                   dtype=torch.int32, device=self.device)
+                self.map = insert_keyframe_rgbd(
+                    self.map, feats, pose, kp_pt, self.frame_id, timestamp,
+                    cfg=cfg, is_init=True)
+                slot = int(self.map.next_kf) - 1
+                dev = self.device
+                self.track = self.track._replace(
+                    pose=pose, last_pose=pose, last_feats=feats,
+                    kp_pt=self.map.kf_pt_idx[slot],
+                    status=tracking._i32(tracking.STATUS_OK, dev),
+                    frame_id=tracking._i32(self.frame_id, dev),
+                    last_kf_frame_id=tracking._i32(self.frame_id, dev))
+                self.n_keyframes += 1
+            self._record(pose, timestamp)
+            self.frame_id += 1
+            return pose.cpu().numpy()
+
+        self.map, self.track, diag = tracking.track_frame(
+            self.map, self.track, feats, self.frame_id, cfg=cfg)
+        # one device -> host read for every scalar of the diagnostics
+        names = list(diag)
+        vals = torch.stack([diag[k].to(torch.int64).reshape(())
+                            for k in names]).tolist()
+        diag_h = dict(zip(names, vals))
+        self.diags.append(diag_h)
+
+        lost = int(self.track.status) == tracking.STATUS_LOST
+        # auto-reset when lost early: with <= 5 keyframes a loss means the
+        # initialization was bad
+        if lost and self.n_keyframes <= cfg.tracking.reset_if_lost_below_kfs:
+            self.n_resets += 1
+            self.reset()
+            self._record(self.track.pose, timestamp)
+            self.frame_id += 1
+            return self.track.pose.cpu().numpy()
+
+        if diag_h["need_kf"]:
+            self.map = insert_keyframe_rgbd(
+                self.map, feats, self.track.pose, self.track.kp_pt,
+                self.frame_id, timestamp, cfg=cfg, is_init=False)
+            slot = int(self.map.next_kf) - 1
+            self.track = self.track._replace(
+                kp_pt=self.map.kf_pt_idx[slot],
+                last_kf_frame_id=tracking._i32(self.frame_id, self.device),
+                ref_kf=tracking._i32(slot, self.device))
+            self.n_keyframes += 1
+            self._on_keyframe(slot)
+
+        self._record(self.track.pose, timestamp)
+        self.frame_id += 1
+        return self.track.pose.cpu().numpy()
+
+    def _on_keyframe(self, slot: int) -> None:
+        """Keyframe-rate mapping: culling, fusion, local BA, stat refresh."""
+        if self.n_keyframes >= 3:
+            self.map = local_mapping.local_mapping_step(self.map, slot,
+                                                        cfg=self.cfg)
+            # BA may have removed some associations as outliers
+            self.track = self.track._replace(kp_pt=self.map.kf_pt_idx[slot])
+        self._maybe_compact_points()
+        if int(self.map.next_kf) >= int(KF_COMPACTION_SHARE * self.map.max_kf):
+            # where the JAX package compacts or evicts keyframe slots
+            raise NotImplementedError(
+                "keyframe table nearly full: keyframe compaction and "
+                "eviction come with the loop-closing slice")
+
+    def _maybe_compact_points(self) -> bool:
+        """Point-slot compaction when the insertion cursor runs low:
+        `next_pt` is append-only, so without it point creation would stop
+        at `max_pt` lifetime insertions."""
+        if int(self.map.next_pt) <= 0.9 * self.map.max_pt:
+            return False
+        self.map, remap = ms.compact_points(self.map)
+        self.n_pt_compactions += 1
+        kp = self.track.kp_pt
+        self.track = self.track._replace(kp_pt=torch.where(
+            kp >= 0, remap[torch.clamp(kp.long(), min=0)], -1))
+        return True
+
+    def _record(self, pose: torch.Tensor, timestamp: float) -> None:
+        self.trajectory.append(pose.cpu().numpy())
+        self.timestamps.append(float(timestamp))
+        # reference keyframe + relative pose, so the trajectory can be
+        # re-derived through later keyframe corrections
+        ref = int(self.track.ref_kf) if self.n_keyframes > 0 else -1
+        if ref >= 0:
+            t_cr = lie.se3_compose(pose, lie.se3_inverse(self.map.kf_pose[ref]))
+            self._traj_refs.append((ref, t_cr.cpu().numpy()))
+        else:
+            self._traj_refs.append((-1, pose.cpu().numpy()))
+
+    def trajectory_tcw(self, corrected: bool = False) -> np.ndarray:
+        """Raw per-frame estimates, or (corrected=True) the trajectory
+        re-derived through the current keyframe poses."""
+        if not self.trajectory:
+            return np.zeros((0, 7), np.float32)
+        if not corrected:
+            return np.stack(self.trajectory)
+        kf_pose = self.map.kf_pose.cpu()
+        kf_valid = self.map.kf_valid.cpu().numpy()
+        out = []
+        for raw, (ref, t_cr) in zip(self.trajectory, self._traj_refs):
+            if ref >= 0 and kf_valid[ref]:
+                out.append(lie.se3_compose(torch.from_numpy(t_cr),
+                                           kf_pose[ref]).numpy())
+            else:
+                out.append(raw)
+        return np.stack(out)

@@ -1,0 +1,202 @@
+"""Local bundle adjustment on the COO edge layout (port of
+`eao_fusion_tpu/solvers/ba.py:bundle_adjust_coo`, without `plane_block`).
+
+Two-phase Levenberg-Marquardt over C cameras, a window of Pw points and E
+edges: phase 1 (≤ n_iters1), a chi2 / positive-depth outlier gate, phase 2
+(≤ n_iters2), as `Optimizer::LocalBundleAdjustment` schedules it. Each
+iteration runs the per-edge pass (`solvers/ba_edge.py`: the CUDA kernel
+for CUDA tensors), sums the camera and point blocks with `index_add_`
+(the JAX package's one-hot [C,E] / [Pw,E] matmuls), gathers the Hcp block
+into a dense [C, Pw] grid through an edge-index table, solves the reduced
+camera system and back-substitutes the points. The accept test and the
+stopping rule read the cost on the host once per iteration (the JAX
+`while_loop` becomes a Python loop); the arithmetic of that host logic is
+done in float32, as the JAX loop does it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from eao_fusion_tpu_torch.config import SolverConfig
+from eao_fusion_tpu_torch.ops import lie
+from eao_fusion_tpu_torch.solvers import ba_edge
+
+
+class BACooProblem(NamedTuple):
+    cam_pose: torch.Tensor    # [C, 7] Tcw
+    cam_valid: torch.Tensor   # [C] bool
+    cam_fixed: torch.Tensor   # [C] bool
+    pt_xyz: torch.Tensor      # [Pw, 3] window-compacted points
+    pt_valid: torch.Tensor    # [Pw] bool
+    obs_cam: torch.Tensor     # [E] int32 camera index
+    obs_pt: torch.Tensor      # [E] int32 window-local point index (-1 none)
+    obs_uv: torch.Tensor      # [E, 2]
+    obs_ur: torch.Tensor      # [E] virtual right u, < 0 = mono
+    obs_inv_sigma2: torch.Tensor  # [E]
+    obs_valid: torch.Tensor   # [E] bool
+
+
+class BAResult(NamedTuple):
+    cam_pose: torch.Tensor
+    pt_xyz: torch.Tensor
+    obs_inlier: torch.Tensor  # [E] bool
+    chi2: torch.Tensor        # [] total inlier chi2
+    pl_coeff: Optional[torch.Tensor] = None
+
+
+def _inv3x3(A: torch.Tensor) -> torch.Tensor:
+    """Closed-form batched 3x3 inverse (adjugate / determinant)."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    A11 = e * i - f * h
+    A12 = c * h - b * i
+    A13 = b * f - c * e
+    A21 = f * g - d * i
+    A22 = a * i - c * g
+    A23 = c * d - a * f
+    A31 = d * h - e * g
+    A32 = b * g - a * h
+    A33 = a * e - b * d
+    det = a * A11 + b * A21 + c * A31
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-18, 1e-18, det)
+    M = torch.stack([torch.stack([A11, A12, A13], -1),
+                     torch.stack([A21, A22, A23], -1),
+                     torch.stack([A31, A32, A33], -1)], -2)
+    return M * inv_det[..., None, None]
+
+
+def edge_lut(obs_cam: torch.Tensor, tgt: torch.Tensor, C: int, Pw: int
+             ) -> torch.Tensor:
+    """[C, Pw] edge index of each (camera, point) pair, E where none.
+    A duplicate (camera, point) edge resolves to ONE edge, the one with the
+    highest index (the JAX scatter's last write on the CPU); `tgt` is the
+    point index, Pw for an edge that takes no part."""
+    E = obs_cam.shape[0]
+    dev = obs_cam.device
+    key = obs_cam.long() * (Pw + 1) + tgt.long()
+    lut = torch.full((C * (Pw + 1),), -1, dtype=torch.int64, device=dev)
+    lut = lut.scatter_reduce(0, key, torch.arange(E, device=dev),
+                             reduce="amax")
+    lut = torch.where(lut < 0, E, lut)
+    return lut.reshape(C, Pw + 1)[:, :Pw]
+
+
+def bundle_adjust_coo(prob: BACooProblem, *, cam: Tuple[float, ...],
+                      cfg: SolverConfig, n_iters1: int = 5,
+                      n_iters2: int = 10, damping: float = 1e-3,
+                      ftol: float = 1e-4) -> BAResult:
+    """Two-phase LM BA on the COO layout; obs_inlier is [E]."""
+    C = prob.cam_pose.shape[0]
+    Pw = prob.pt_xyz.shape[0]
+    E = prob.obs_cam.shape[0]
+    dev = prob.cam_pose.device
+    f32 = torch.float32
+    cam_idx = prob.obs_cam.long()
+    free_cam = (prob.cam_valid & (~prob.cam_fixed)).to(f32)
+    obs_ok0 = prob.obs_valid & (prob.obs_pt >= 0) & prob.cam_valid[cam_idx]
+    tgt0 = torch.where(obs_ok0, prob.obs_pt.long(), Pw)
+    lut = edge_lut(prob.obs_cam, tgt0, C, Pw)                  # [C, Pw]
+    chi2_kw = dict(cam=cam, chi2_mono=cfg.chi2_mono,
+                   chi2_stereo=cfg.chi2_stereo)
+    obs_pt_c = torch.clamp(prob.obs_pt, 0, Pw - 1).to(torch.int32)
+    obs_cam_c = prob.obs_cam.to(torch.int32).contiguous()
+    eye3 = torch.eye(3, dtype=f32, device=dev)
+    eye6 = torch.eye(6, dtype=f32, device=dev)
+    pt_free = prob.pt_valid[:, None, None]
+
+    def inputs(cam_pose, pt_xyz):
+        return ba_edge.EdgeInputs(
+            cam_pose=cam_pose.contiguous(), pt_xyz=pt_xyz.contiguous(),
+            obs_cam=obs_cam_c, obs_pt=obs_pt_c,
+            obs_uv=prob.obs_uv.contiguous(), obs_ur=prob.obs_ur.contiguous(),
+            obs_inv_sigma2=prob.obs_inv_sigma2.contiguous(),
+            free_cam=free_cam)
+
+    def robust_chi2(cam_pose, pt_xyz, active_f):
+        c2r, _, _ = ba_edge.edge_pass_chi2(inputs(cam_pose, pt_xyz),
+                                           active_f, **chi2_kw)
+        return torch.sum(c2r)
+
+    def gn_iter(cam_pose, pt_xyz, active_f, lam: float):
+        payc, payp, y = ba_edge.edge_pass_full(inputs(cam_pose, pt_xyz),
+                                               active_f, **chi2_kw)
+        acc_c = torch.zeros((C, 42), dtype=f32, device=dev).index_add_(
+            0, cam_idx, payc.T)
+        acc = torch.zeros((Pw + 1, 12), dtype=f32, device=dev).index_add_(
+            0, tgt0, payp.T)[:Pw]
+        Y = y.T.reshape(E, 6, 3)
+        Hcc = acc_c[:, :36].reshape(C, 6, 6)
+        bc = -acc_c[:, 36:]
+        Hpp = acc[:, :9].reshape(Pw, 3, 3) + (lam + 1e-6) * eye3
+        bp = -acc[:, 9:]
+        Hpp_inv = torch.where(pt_free, _inv3x3(Hpp), 0.0)
+
+        # Hcp gathered into the dense [C, Pw] grid
+        A = torch.cat([Y, Y.new_zeros((1, 6, 3))])[lut]       # [C, Pw, 6, 3]
+        AH = torch.einsum("cpij,pjk->cpik", A, Hpp_inv)
+        AH2 = AH.permute(0, 2, 1, 3).reshape(C * 6, Pw * 3)
+        A2 = A.permute(0, 2, 1, 3).reshape(C * 6, Pw * 3)
+        S = -(AH2 @ A2.T).reshape(C, 6, C, 6).permute(0, 2, 1, 3)
+        diag = torch.arange(C, device=dev)
+        S[diag, diag] += Hcc
+        rhs = bc - (AH2 @ bp.reshape(-1)).reshape(C, 6)
+        S = S * free_cam[:, None, None, None] * free_cam[None, :, None, None]
+        S[diag, diag] += (eye6 * (1.0 - free_cam)[:, None, None]
+                          + eye6 * lam)
+        rhs = rhs * free_cam[:, None]
+        M = S.permute(0, 2, 1, 3).reshape(C * 6, C * 6)
+        delta_c = torch.linalg.solve(M, rhs.reshape(-1)).reshape(C, 6)
+        good = torch.all(torch.isfinite(delta_c))
+        delta_c = torch.where(good, delta_c, 0.0)
+        t = bp - (A2.T @ delta_c.reshape(-1)).reshape(Pw, 3)
+        delta_p = torch.einsum("pij,pj->pi", Hpp_inv, t)
+        delta_p = torch.clamp(torch.where(good & prob.pt_valid[:, None],
+                                          delta_p, 0.0), -10.0, 10.0)
+        return lie.se3_retract(cam_pose, delta_c), pt_xyz + delta_p
+
+    def run_phase(cam_pose, pt_xyz, active, iters):
+        """LM accept / reject with the current cost carried; ends after two
+        consecutive iterations without a relative improvement of `ftol`
+        (rejected steps count)."""
+        active_f = active.to(f32)
+        lam = np.float32(damping)
+        c_cur = np.float32(robust_chi2(cam_pose, pt_xyz, active_f).item())
+        it, stall = 0, 0
+        while it < iters and stall < 2:
+            cp2, ps2 = gn_iter(cam_pose, pt_xyz, active_f, float(lam))
+            c_new = np.float32(robust_chi2(cp2, ps2, active_f).item())
+            accept = bool(c_new < c_cur) and bool(np.isfinite(c_new))
+            if accept:
+                cam_pose, pt_xyz = cp2, ps2
+                lam = max(lam * np.float32(0.5), np.float32(1e-6))
+            else:
+                lam = min(lam * np.float32(5.0), np.float32(1e3))
+            improved = accept and bool(
+                c_cur - c_new >= np.float32(ftol) * max(c_cur,
+                                                        np.float32(1e-9)))
+            stall = 0 if improved else stall + 1
+            if accept:
+                c_cur = c_new
+            it += 1
+        return cam_pose, pt_xyz
+
+    def classify(cam_pose, pt_xyz, thr):
+        """Raw chi2 + behind flag for the between-phase outlier gate."""
+        _, chi2, behind = ba_edge.edge_pass_chi2(
+            inputs(cam_pose, pt_xyz), obs_ok0.to(f32), **chi2_kw)
+        return obs_ok0 & (chi2 <= thr) & (behind < 0.5), chi2
+
+    thr = torch.where(prob.obs_ur >= 0.0, cfg.chi2_stereo, cfg.chi2_mono)
+    cam_pose, pt_xyz = run_phase(prob.cam_pose, prob.pt_xyz, obs_ok0,
+                                 n_iters1)
+    inlier, _ = classify(cam_pose, pt_xyz, thr)
+    cam_pose, pt_xyz = run_phase(cam_pose, pt_xyz, inlier, n_iters2)
+    inlier, chi2 = classify(cam_pose, pt_xyz, thr)
+    total = torch.sum(torch.where(inlier, chi2, 0.0))
+    return BAResult(cam_pose=cam_pose, pt_xyz=pt_xyz, obs_inlier=inlier,
+                    chi2=total)

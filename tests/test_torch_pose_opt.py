@@ -1,0 +1,118 @@
+"""Pose optimization of the port against the JAX package: the plain PyTorch
+version against `_optimize_pose_xla` and the Pallas kernel (interpreted),
+on the 1024-observation problem of test_pose_opt.py (20% outliers, mixed
+mono / stereo, every 17th slot invalid), with and without two planes.
+Tolerances: pose error < 1e-3, inlier agreement > 99.5%, n_inliers within
+5. The CUDA kernel against the plain version runs under the `gpu` marker."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from eao_fusion_tpu.config import SolverConfig
+from eao_fusion_tpu.ops import lie as JL
+from eao_fusion_tpu.solvers import pose_opt as JP
+from eao_fusion_tpu.solvers import pose_opt_pallas as JPP
+from eao_fusion_tpu_torch import config as TC
+from eao_fusion_tpu_torch.solvers import pose_opt as TP
+from test_pose_opt import CAM, make_problem, pose_err
+
+CFG = SolverConfig()
+TCFG = TC.SolverConfig()
+
+
+def _problem():
+    r = np.random.default_rng(7)
+    pose_gt, obs, _ = make_problem(r, n=1024, noise=0.3, outlier_frac=0.2)
+    ur = np.asarray(obs.uright).copy()
+    ur[::3] = -1.0
+    valid = np.ones((1024,), bool)
+    valid[::17] = False
+    obs = obs._replace(uright=jnp.asarray(ur), valid=jnp.asarray(valid))
+    planes_w = np.array([[0, -1, 0, 1.2], [0, 0, -1, 4.5]], np.float32)
+    R = np.asarray(JL.quat_to_rotmat(pose_gt[:4]))
+    n_c = planes_w[:, :3] @ R.T
+    d_c = planes_w[:, 3] - n_c @ pose_gt[4:7]
+    meas = np.concatenate([n_c, d_c[:, None]], axis=1).astype(np.float32)
+    pobs = JP.PlaneObs(plane_w=jnp.asarray(planes_w), meas_c=jnp.asarray(meas),
+                       valid=jnp.ones((2,), bool))
+    pose0 = jnp.asarray(np.asarray(JL.se3_retract(
+        jnp.asarray(pose_gt), jnp.asarray(
+            np.r_[0.02, -0.01, 0.02, 0.06, -0.04, 0.05], np.float32))))
+    return pose0, obs, pobs
+
+
+def _to_torch(nt, cls, device="cpu"):
+    return cls(*[torch.as_tensor(np.array(getattr(nt, k)), device=device)
+                 for k in cls._fields])
+
+
+def _check(ref, pose, inliers, n_inliers):
+    assert pose_err(ref.pose, np.asarray(pose)) < 1e-3
+    ri = np.asarray(ref.inliers)
+    assert (ri == np.asarray(inliers)).mean() > 0.995
+    assert abs(int(ref.n_inliers) - int(n_inliers)) <= 5
+
+
+@pytest.mark.parametrize("with_planes", [False, True])
+def test_plain_matches_xla_and_pallas(with_planes):
+    pose0, obs, pobs = _problem()
+    p = pobs if with_planes else None
+    res = TP.optimize_pose(torch.from_numpy(np.array(pose0)),
+                           _to_torch(obs, TP.PoseObs),
+                           _to_torch(p, TP.PlaneObs) if p else None,
+                           cam=CAM, cfg=TCFG)
+    ref_x = JP._optimize_pose_xla(pose0, obs, p, cam=CAM, cfg=CFG)
+    ref_p = JPP.optimize_pose_pallas(pose0, obs, p, cam=CAM, cfg=CFG,
+                                     interpret=True)
+    for ref in (ref_x, ref_p):
+        _check(ref, res.pose.numpy(), res.inliers.numpy(), res.n_inliers)
+    np.testing.assert_allclose(float(res.chi2), float(ref_x.chi2), rtol=1e-3)
+
+
+def test_cpu_dispatch_is_the_plain_version():
+    pose0, obs, _ = _problem()
+    args = (torch.from_numpy(np.array(pose0)), _to_torch(obs, TP.PoseObs))
+    a = TP.optimize_pose(*args, cam=CAM, cfg=TCFG)
+    stats = {}
+    b = TP.optimize_pose_plain(*args, cam=CAM, cfg=TCFG, stats=stats)
+    np.testing.assert_array_equal(a.pose.numpy(), b.pose.numpy())
+    assert 4 <= stats["gn_iters"] <= TCFG.pose_rounds * TCFG.pose_iters_per_round
+
+
+def test_kernel_wrapper_never_falls_back():
+    """Handed a CPU tensor, the CUDA wrapper raises instead of running the
+    plain version; too many planes raise before anything launches."""
+    from eao_fusion_tpu_torch import kernels
+    pose0, obs, pobs = _problem()
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        TP.optimize_pose_cuda(torch.from_numpy(np.array(pose0)),
+                              _to_torch(obs, TP.PoseObs), cam=CAM, cfg=TCFG)
+    many = TP.PlaneObs(plane_w=torch.zeros(129, 4), meas_c=torch.zeros(129, 4),
+                       valid=torch.ones(129, dtype=torch.bool))
+    with pytest.raises(ValueError, match="planes"):
+        TP.optimize_pose_cuda(torch.from_numpy(np.array(pose0)),
+                              _to_torch(obs, TP.PoseObs), many, cam=CAM,
+                              cfg=TCFG)
+    assert kernels.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_planes", [False, True])
+def test_cuda_kernel_matches_plain(with_planes):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    pose0, obs, pobs = _problem()
+    dev = torch.device("cuda")
+    args = (torch.as_tensor(np.array(pose0), device=dev),
+            _to_torch(obs, TP.PoseObs, dev),
+            _to_torch(pobs, TP.PlaneObs, dev) if with_planes else None)
+    ref = TP.optimize_pose_plain(*args, cam=CAM, cfg=TCFG)
+    ker = TP.optimize_pose_cuda(*args, cam=CAM, cfg=TCFG)
+    assert pose_err(ref.pose.cpu().numpy(), ker.pose.cpu().numpy()) < 1e-3
+    agree = (ref.inliers == ker.inliers).float().mean().item()
+    assert agree > 0.995
+    assert abs(int(ref.n_inliers) - int(ker.n_inliers)) <= 5

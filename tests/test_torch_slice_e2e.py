@@ -1,0 +1,95 @@
+"""The whole slice against the JAX package: RGBD tracking with
+keyframe-rate local BA over the 20-frame seed-0 arc (small config;
+planes, objects and loop closing off), the port's System on the CPU beside
+the JAX System on the same frames."""
+
+import numpy as np
+import pytest
+import torch
+
+from eao_fusion_tpu.config import MapCapacity, ORBConfig, SystemConfig
+from eao_fusion_tpu.io import synthetic
+from eao_fusion_tpu.ops import lie as JL
+from eao_fusion_tpu.pipeline.system import System as JSystem
+from eao_fusion_tpu_torch import config as TC
+from eao_fusion_tpu_torch import kernels
+from eao_fusion_tpu_torch.io import tum
+from eao_fusion_tpu_torch.pipeline.system import System
+
+OFF = dict(use_planes=False, use_objects=False, use_loop_closing=False)
+
+
+def _tcfg(**kw):
+    return TC.SystemConfig(
+        orb=TC.ORBConfig(n_features=500, max_keypoints=512),
+        capacity=TC.MapCapacity(max_keyframes=64, max_points=4096),
+        **{**OFF, **kw})
+
+
+def test_slice_matches_jax_system():
+    seq = synthetic.generate_sequence(n_frames=20, seed=0, style="arc",
+                                      cache_dir=synthetic.DEFAULT_CACHE)
+    js = JSystem(SystemConfig(
+        orb=ORBConfig(n_features=500, max_keypoints=512),
+        capacity=MapCapacity(max_keyframes=64, max_points=4096), **OFF))
+    ts = System(_tcfg(), device="cpu")
+    before = dict(kernels.launches)
+    for f in seq.frames:
+        js.process_frame(f.gray, f.depth, f.timestamp)
+        ts.process_frame(f.gray, f.depth, f.timestamp)
+    # the CPU path never touches a kernel
+    assert kernels.launches == before
+
+    a, b = ts.trajectory_tcw(), js.trajectory_tcw()
+    assert a.shape == b.shape == (20, 7)
+    # per-frame camera centres within 5 mm, rotations within 0.3 degrees
+    ca = np.asarray(JL.se3_inverse(a))[:, 4:7]
+    cb = np.asarray(JL.se3_inverse(b))[:, 4:7]
+    assert np.linalg.norm(ca - cb, axis=1).max() < 5e-3
+    dq = np.abs(np.sum(a[:, :4] * b[:, :4], axis=1)).clip(max=1.0)
+    assert np.degrees(2 * np.arccos(dq)).max() < 0.3
+    assert abs(ts.n_keyframes - js.n_keyframes) <= 1
+    assert ts.n_keyframes >= 4                  # local BA ran
+    err = tum.evaluate_ate_rpe(a, seq.gt_tcw())
+    assert err.ate_rmse < 0.02, err
+    assert all(d["n_inliers"] > 50 for d in ts.diags)
+    assert ts.n_resets == 0
+
+
+def test_device_defaults_to_the_card(monkeypatch):
+    """With no card and no device named, the System raises; there is no
+    silent CPU fallback."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        System(_tcfg())
+
+
+@pytest.mark.parametrize("flag", ["use_planes", "use_objects",
+                                  "use_loop_closing", "semantic_online"])
+def test_unported_options_raise(flag):
+    with pytest.raises(NotImplementedError, match=flag):
+        System(_tcfg(**{flag: True}), device="cpu")
+
+
+def test_mono_and_stereo_input_raise():
+    s = System(_tcfg(), device="cpu")
+    gray = np.zeros((480, 640), np.float32)
+    with pytest.raises(NotImplementedError):
+        s.process_frame(gray, None)
+    with pytest.raises(NotImplementedError):
+        s.process_frame(gray, gray, right=gray)
+
+
+def test_full_keyframe_table_raises():
+    """Where the JAX package would compact or evict keyframe slots (next_kf
+    at 0.9 of the table), the port stops loudly instead of diverging."""
+    seq = synthetic.generate_sequence(n_frames=20, seed=0, style="arc",
+                                      cache_dir=synthetic.DEFAULT_CACHE)
+    s = System(_tcfg(), device="cpu")
+    s.process_frame(seq.frames[0].gray, seq.frames[0].depth, 0.0)
+    K = s.map.max_kf
+    s._on_keyframe(0)                          # far from full: no error
+    s.map = s.map._replace(next_kf=torch.tensor(int(0.9 * K),
+                                                dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="keyframe"):
+        s._on_keyframe(0)
