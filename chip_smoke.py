@@ -5,18 +5,31 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. the device: name, count, `nvidia-smi` name and power limit;
-  2. build every CUDA kernel of the main path from `eao_fusion_tpu_torch/csrc`;
+  2. build every CUDA kernel of the main path from `eao_fusion_tpu_torch/csrc`
+     (one `nvcc` per source, all started together);
   3. the pose kernel (K1) against its plain PyTorch version, M = 1024,
-     with and without planes;
+     with no planes, two planes, and the eight plane slots (three
+     unmatched) that the main path's second solve of a frame gets;
   4. the BA edge kernels (K2 full pass, K3 chi2 pass) against their plain
      versions at E = 8192, C = 32, Pw = 2048;
-  5. the main path end to end at full width: RGBD tracking with
-     keyframe-rate local BA (`tum_fr3_config` with planes, objects and
-     loop closing off: 640x480, 1024 keypoint slots, 256 keyframes, 16384
-     points) on the port's own 20-frame synthetic arc, with the launch
-     counts set to 0 just before and read just after;
-  6. one JSON line with every kernel's numbers, the `nvidia-smi` line, and
-     as the last line {"ok": true, "device": {...}}.
+  5. the Cholesky kernel (K4) against its plain version and a float64
+     solve at D = 192: local BA's reduced camera system of one LM
+     iteration on phase 4's window, and a random SPD matrix; its time
+     beside `torch.linalg.solve`, the call it replaces;
+  6. RGBD tracking with keyframe-rate local BA at full width
+     (`tum_fr3_config` with planes, objects and loop closing off: 640x480,
+     1024 keypoint slots, 256 keyframes, 16384 points) on the port's own
+     20-frame synthetic arc;
+  7. the slice's main path, the default RGBD configuration with planes on
+     (objects and loop closing off), on the same arc: plane segmentation
+     every frame, plane factors in K1 and in local BA, K4 solving local
+     BA's reduced camera system;
+  8. keyframe compaction: the 24-frame arc into a 12-slot keyframe table;
+  9. one JSON line with every kernel's numbers (launches from phase 7),
+     the `nvidia-smi` line, and as the last line {"ok": true, "device":
+     {...}}.
+Phases 6-8 each set the launch counts to 0 just before they drive the
+System and read them just after.
 
 All times are measured on the card in this run (CUDA events for kernels,
 the host clock around synchronized work for frames). `bound_ms` is the
@@ -44,6 +57,10 @@ SEED = 0
 # residual, Huber weight, 3x6 Jacobian, 21 H + 6 b sums) and one chi2 pass
 POSE_FLOPS_PER_OBS_ITER = 320
 POSE_FLOPS_PER_OBS_CHI2 = 40
+# and per plane slot: rotate the normal, 4 residuals, a 4x6 Jacobian, 21 H
+# + 6 b sums; its chi2
+POSE_FLOPS_PER_PLANE_ITER = 200
+POSE_FLOPS_PER_PLANE_CHI2 = 30
 # flops of the edge kernels per edge (camera rotation, projection, Huber,
 # 3x9 Jacobian; the full pass adds the 63 Gram entries and 9 rhs sums)
 EDGE_FLOPS_FULL = 600
@@ -103,10 +120,23 @@ def device_us(fn, reps: int, kernel: str):
     return None
 
 
+# five planes of the scene (floor, back wall, side walls, ceiling) and the
+# eight plane slots of the second solve of track_frame (Q =
+# max_planes_per_frame): -1 marks an unmatched slot (valid False), whose
+# landmark is slot 0's, as build_plane_obs clamps the index
+PLANES_W = np.array([[0, -1, 0, 1.2], [0, 0, -1, 4.5], [1, 0, 0, 2.5],
+                     [-1, 0, 0, 2.5], [0, 1, 0, 1.5]], np.float32)
+SLOTS8 = [0, 1, -1, 2, -1, 3, 4, -1]
+
+
 def pose_problem(rng, dev, n=1024, noise=0.3, outlier_frac=0.2):
     """The problem of tests/test_pose_opt.py: points in front of a perturbed
-    camera, 20% gross outliers, every 3rd edge mono, every 17th invalid,
-    two planes measured under the true pose."""
+    camera, 20% gross outliers, every 3rd edge mono, every 17th invalid;
+    plane factors measured under the true pose, as {name: PlaneObs}: the
+    two planes of that test, and eight slots as the main path's second
+    solve gets them, three of them unmatched. The unmatched slots hold
+    wrong measurements inside the plane chi2 gate, so that a solve that
+    used them would move."""
     import torch
     from eao_fusion_tpu_torch.ops import lie
     from eao_fusion_tpu_torch.solvers import pose_opt
@@ -134,14 +164,26 @@ def pose_problem(rng, dev, n=1024, noise=0.3, outlier_frac=0.2):
     obs = pose_opt.PoseObs(pts_w=t(pts), uv=t(uv), uright=t(ur),
                            inv_sigma2=t(np.ones(n)),
                            valid=torch.as_tensor(valid, device=dev))
-    planes_w = np.array([[0, -1, 0, 1.2], [0, 0, -1, 4.5]], np.float32)
     R = lie.quat_to_rotmat(pose_gt[:4]).cpu().numpy()
     tr = pose_gt[4:7].cpu().numpy()
-    n_c = planes_w[:, :3] @ R.T
-    d_c = planes_w[:, 3] - n_c @ tr
-    pobs = pose_opt.PlaneObs(
-        plane_w=t(planes_w), meas_c=t(np.concatenate([n_c, d_c[:, None]], 1)),
-        valid=torch.ones(2, dtype=torch.bool, device=dev))
+    n_c = PLANES_W[:, :3] @ R.T
+    d_c = PLANES_W[:, 3] - n_c @ tr
+    meas = np.concatenate([n_c, d_c[:, None]], 1).astype(np.float32)
+    # unmatched slots: the back wall 15 cm off, the floor 15 cm off, a side
+    # wall's normal tilted by 0.25 rad
+    tilt = np.r_[meas[2, :3] + [0, 0.25, 0], meas[2, 3]]
+    wrong = np.stack([meas[1] + [0, 0, 0, 0.15], meas[0] + [0, 0, 0, 0.15],
+                      tilt / np.r_[np.linalg.norm(tilt[:3]).repeat(3), 1]])
+    pobs = {}
+    for name, slots in (("2 planes", [0, 1]),
+                        ("8 slots, 3 unmatched", SLOTS8)):
+        idx = np.maximum(slots, 0)
+        bad = np.asarray(slots) < 0
+        meas_c = meas[idx]
+        meas_c[bad] = wrong[:int(bad.sum())]
+        pobs[name] = pose_opt.PlaneObs(
+            plane_w=t(PLANES_W[idx]), meas_c=t(meas_c),
+            valid=torch.as_tensor(~bad, device=dev))
     pose0 = lie.se3_retract(pose_gt, t([0.02, -0.01, 0.02, 0.06, -0.04, 0.05]))
     return pose0, obs, pobs
 
@@ -154,13 +196,17 @@ def pose_err(a, b) -> float:
 
 
 def phase_pose(dev, cfg):
-    """K1 against optimize_pose_plain; returns the kernel's numbers."""
+    """K1 against optimize_pose_plain with no planes, two planes and the
+    main path's eight plane slots; timed at both shapes the main path
+    launches it with (Q = 0 for the first solve of a frame, Q = 8 for the
+    second). Returns the kernel's numbers: per shape, and as the mean over
+    the main path's launches, half of them at each shape."""
     from eao_fusion_tpu_torch.solvers import pose_opt
     rng = np.random.default_rng(7)
     pose0, obs, pobs = pose_problem(rng, dev)
     cam5 = CAM
     max_err = 0.0
-    for planes in (None, pobs):
+    for tag, planes in (("no planes", None), *pobs.items()):
         ref = pose_opt.optimize_pose_plain(pose0, obs, planes, cam=cam5,
                                            cfg=cfg)
         ker = pose_opt.optimize_pose_cuda(pose0, obs, planes, cam=cam5,
@@ -168,39 +214,62 @@ def phase_pose(dev, cfg):
         err = pose_err(ref.pose, ker.pose)
         agree = float((ref.inliers == ker.inliers).float().mean())
         dn = abs(int(ref.n_inliers) - int(ker.n_inliers))
-        tag = "planes" if planes is not None else "no planes"
         log(f"K1 pose_opt ({tag}): pose err {err:.3g} (< 1e-3), inlier "
             f"agreement {agree:.4f} (> 0.995), n_inliers {int(ref.n_inliers)}"
             f" vs {int(ker.n_inliers)} (within 5)")
         if not (err < 1e-3 and agree > 0.995 and dn <= 5):
             raise AssertionError(f"K1 disagrees with its plain version "
                                  f"({tag})")
+        if planes is not None and not bool(planes.valid.all()):
+            # the unmatched slots must change nothing: the kernel with them
+            # left out gives the same pose
+            keep = planes.valid
+            only = pose_opt.PlaneObs(*[x[keep] for x in planes])
+            ker5 = pose_opt.optimize_pose_cuda(pose0, obs, only, cam=cam5,
+                                               cfg=cfg)
+            e5 = pose_err(ker5.pose, ker.pose)
+            log(f"K1 pose_opt ({tag}): the unmatched slots left out, pose "
+                f"err {e5:.3g} (< 1e-4)")
+            if not e5 < 1e-4:
+                raise AssertionError("K1 uses unmatched plane slots")
         max_err = max(max_err, float((ref.pose - ker.pose).abs().max()))
-    # timing at the main path's shape: M = 1024, no planes
-    stats = {}
-    pose_opt.optimize_pose_plain(pose0, obs, None, cam=cam5, cfg=cfg,
-                                 stats=stats)
-    ms = cuda_ms(lambda: pose_opt.optimize_pose_cuda(pose0, obs, None,
-                                                     cam=cam5, cfg=cfg), 50)
-    plain_ms = cuda_ms(lambda: pose_opt.optimize_pose_plain(
-        pose0, obs, None, cam=cam5, cfg=cfg), 5, warmup=1)
-    dev_us = device_us(lambda: pose_opt.optimize_pose_cuda(
-        pose0, obs, None, cam=cam5, cfg=cfg), 20, "pose_opt_kernel")
     M = obs.valid.shape[0]
-    nbytes = 7 * 4 + 8 * M * 4 + (8 + M + 2) * 4
-    flops = M * (POSE_FLOPS_PER_OBS_ITER * stats["gn_iters"]
-                 + POSE_FLOPS_PER_OBS_CHI2 * (cfg.pose_rounds + 1))
-    b_ms, b_by = bound(nbytes, flops)
-    log(f"K1 timing: kernel {ms:.4f} ms per call, device time "
-        f"{_us(dev_us)}, plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms "
-        f"({b_by}; {stats['gn_iters']} GN iterations)")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+    shapes = {}
+    for Q, planes in ((0, None), (8, pobs["8 slots, 3 unmatched"])):
+        stats = {}
+        pose_opt.optimize_pose_plain(pose0, obs, planes, cam=cam5, cfg=cfg,
+                                     stats=stats)
+        ms = cuda_ms(lambda: pose_opt.optimize_pose_cuda(
+            pose0, obs, planes, cam=cam5, cfg=cfg), 50)
+        plain_ms = cuda_ms(lambda: pose_opt.optimize_pose_plain(
+            pose0, obs, planes, cam=cam5, cfg=cfg), 5, warmup=1)
+        dev_us = device_us(lambda: pose_opt.optimize_pose_cuda(
+            pose0, obs, planes, cam=cam5, cfg=cfg), 20, "pose_opt_kernel")
+        # pose, 8 channels per observation, 9 per plane slot in; pose,
+        # inlier flags and stats out
+        nbytes = 7 * 4 + 8 * M * 4 + 9 * Q * 4 + (8 + M + 2) * 4
+        n_iter = stats["gn_iters"]
+        flops = (M * (POSE_FLOPS_PER_OBS_ITER * n_iter
+                      + POSE_FLOPS_PER_OBS_CHI2 * (cfg.pose_rounds + 1))
+                 + Q * (POSE_FLOPS_PER_PLANE_ITER * n_iter
+                        + POSE_FLOPS_PER_PLANE_CHI2 * (cfg.pose_rounds + 1)))
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"K1 timing (M = {M}, Q = {Q}): kernel {ms:.4f} ms per call, "
+            f"device time {_us(dev_us)}, plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}; {n_iter} GN iterations)")
+        shapes[f"Q={Q}"] = dict(ms=ms, device_us=dev_us, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by)
+    a, b = shapes.values()
+    return dict(max_abs_err=max_err, ms=(a["ms"] + b["ms"]) / 2,
+                plain_ms=(a["plain_ms"] + b["plain_ms"]) / 2,
+                bound_ms=(a["bound_ms"] + b["bound_ms"]) / 2,
+                bound_by=b["bound_by"], per_shape=shapes)
 
 
 def edge_problem(rng, dev, C=32, Pw=2048, E=8192):
     """A local-BA window: C cameras on an arc, Pw points in front, E edges
-    (the last 5% empty padding), a third mono, 8 fixed cameras."""
+    (the last 5% empty padding), a third mono, a quarter of the cameras
+    fixed."""
     import torch
     from eao_fusion_tpu_torch.ops import lie
     from eao_fusion_tpu_torch.solvers import ba_edge
@@ -229,7 +298,7 @@ def edge_problem(rng, dev, C=32, Pw=2048, E=8192):
     uv[::50] += 40.0                                 # a few gross outliers
     lvl = rng.integers(0, 8, E)
     free = np.ones(C, np.float32)
-    free[-8:] = 0.0
+    free[-(C // 4):] = 0.0
     x = ba_edge.EdgeInputs(
         cam_pose=cams.contiguous(), pt_xyz=t(pts), obs_cam=t(obs_cam,
                                                              torch.int32),
@@ -304,22 +373,138 @@ def phase_edges(dev, cfg):
                  bound_ms=b3[0], bound_by=b3[1]))
 
 
-def phase_main_path(dev):
-    """The port's System on the card at full width; returns its summary
-    and the launch counts of the run."""
+def schur_system(dev, C=32):
+    """The reduced camera system (M [6C, 6C], rhs [6C]) of the first LM
+    iteration of local BA on phase 4's window (C = 32 cameras, 8 fixed;
+    C = 12 is the window of the compaction phase), taken where
+    `bundle_adjust_coo` hands it to the Cholesky solve."""
+    import torch
+    from eao_fusion_tpu_torch.config import SolverConfig
+    from eao_fusion_tpu_torch.solvers import ba, chol
+    x, active = edge_problem(np.random.default_rng(11), dev, C=C)
+    C, Pw = x.cam_pose.shape[0], x.pt_xyz.shape[0]
+    ok = active > 0
+    prob = ba.BACooProblem(
+        cam_pose=x.cam_pose, cam_valid=torch.ones(C, dtype=torch.bool,
+                                                  device=dev),
+        cam_fixed=x.free_cam == 0, pt_xyz=x.pt_xyz,
+        pt_valid=torch.ones(Pw, dtype=torch.bool, device=dev),
+        obs_cam=x.obs_cam, obs_pt=torch.where(ok, x.obs_pt, -1),
+        obs_uv=x.obs_uv, obs_ur=x.obs_ur, obs_inv_sigma2=x.obs_inv_sigma2,
+        obs_valid=ok)
+    taken = []
+    solve = chol.cholesky_solve
+
+    def take(M, rhs):
+        taken.append((M.clone(), rhs.clone()))
+        return solve(M, rhs)
+
+    chol.cholesky_solve = take
+    try:
+        ba.bundle_adjust_coo(prob, cam=CAM, cfg=SolverConfig(), n_iters1=1,
+                             n_iters2=0)
+    finally:
+        chol.cholesky_solve = solve
+    return taken[0]
+
+
+def _rel(a, ref) -> float:
+    import torch
+    a = a.detach().cpu().to(torch.float64)
+    ref = ref.detach().cpu().to(torch.float64)
+    return float(torch.linalg.norm(a - ref) / torch.linalg.norm(ref))
+
+
+def _chol_check(name, Mi, bi) -> float:
+    """K4 on (Mi, bi) against its plain version and a float64 solve;
+    returns the largest absolute difference from the plain version."""
+    import torch
+    from eao_fusion_tpu_torch.solvers import chol
+    D = Mi.shape[0]
+    xk = chol.cholesky_solve(Mi, bi)
+    xp = chol.cholesky_solve_plain(Mi, bi)
+    # K4 solves the SPD system of M's lower triangle; the Schur matrix is
+    # symmetric only up to the rounding of its float32 products
+    M64 = torch.tril(Mi.cpu().double())
+    M64 = M64 + torch.tril(M64, -1).T
+    b64 = bi.cpu().double()
+    x64 = torch.linalg.solve(M64, b64)
+    e_plain, e64, e64p = _rel(xk, xp), _rel(xk, x64), _rel(xp, x64)
+    d = torch.sqrt(torch.diagonal(M64))
+    cond = float(torch.linalg.cond(M64 / d[:, None] / d[None, :]))
+    asym = float((Mi - Mi.T).abs().max() / Mi.abs().max())
+    e_lu = _rel(xk, torch.linalg.solve(Mi.cpu().double(), b64))
+    log(f"K4 chol_solve ({name}, D = {D}, cond {cond:.3g} after "
+        f"diagonal scaling): relative error {e_plain:.3g} against the "
+        f"plain version, {e64:.3g} against float64 (plain: {e64p:.3g}); "
+        f"both < 1e-4. M's asymmetry {asym:.3g} of its largest entry "
+        f"moves the solution by {e_lu:.3g} from the float64 LU of all "
+        f"of M (the solve K4 replaces)")
+    if not (e_plain < 1e-4 and e64 < 1e-4):
+        raise AssertionError(f"K4 disagrees ({name}, D = {D})")
+    return float((xk - xp).abs().max())
+
+
+def phase_chol(dev):
+    """K4 against its plain version and a float64 solve at the two sizes
+    the System phases give it: D = 192 (local BA's 32-keyframe window) and
+    D = 72 (the 12-keyframe window of the compaction phase). Returns its
+    numbers at D = 192, the size of the main path, with D = 72 beside
+    them."""
+    import torch
+    from eao_fusion_tpu_torch.solvers import chol
+    M, rhs = schur_system(dev)
+    D = M.shape[0]
+    rng = np.random.default_rng(5)
+    Q, _ = np.linalg.qr(rng.normal(size=(D, D)))
+    A = (Q * np.logspace(0, 3, D)) @ Q.T
+    A = torch.as_tensor(0.5 * (A + A.T), dtype=torch.float32, device=dev)
+    b = torch.as_tensor(rng.normal(size=D), dtype=torch.float32, device=dev)
+    M72, rhs72 = schur_system(dev, C=12)
+    max_err = max(_chol_check("Schur system", M, rhs),
+                  _chol_check("random SPD, cond 1e3", A, b))
+    err72 = _chol_check("Schur system", M72, rhs72)
+
+    shapes = {}
+    for Mi, bi in ((M, rhs), (M72, rhs72)):
+        Di = Mi.shape[0]
+        ms = cuda_ms(lambda: chol.cholesky_solve(Mi, bi), 200)
+        dev_us = device_us(lambda: chol.cholesky_solve(Mi, bi), 50,
+                           "chol_solve_kernel")
+        plain_ms = cuda_ms(lambda: chol.cholesky_solve_plain(Mi, bi), 3,
+                           warmup=1)
+        lib_ms = cuda_ms(lambda: torch.linalg.solve(Mi, bi), 50)
+        lib_us = device_us(lambda: torch.linalg.solve(Mi, bi), 20, "getrf")
+        # the kernel reads M's lower triangle and b, and writes x
+        nbytes = 4 * (Di * (Di + 1) // 2 + 2 * Di)
+        flops = Di ** 3 / 3 + 2 * Di * Di
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"K4 timing (D = {Di}): kernel {ms:.4f} ms per call, device "
+            f"time {_us(dev_us)}, plain {plain_ms:.3f} ms, "
+            f"torch.linalg.solve {lib_ms:.4f} ms per call (its getrf "
+            f"{_us(lib_us)}), bound {b_ms:.6f} ms ({b_by}); like K1 it is "
+            f"latency-bound: a chain of {Di} dependent column steps and "
+            f"{2 * Di} substitution steps")
+        shapes[f"D={Di}"] = dict(ms=ms, device_us=dev_us, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=lib_ms, library_getrf_us=lib_us)
+    main = shapes[f"D={D}"]
+    shapes["D=72"]["max_abs_err"] = err72
+    return dict(max_abs_err=max_err, ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=main["library_ms"],
+                per_shape=shapes)
+
+
+def run_system(cfg, seq, tag: str, corrected: bool = False):
+    """Drive `System(cfg)` on the card over `seq`, the launch counts set to
+    0 just before and read just after; returns the System, its summary
+    (ATE of the raw or, with `corrected`, the keyframe-corrected
+    trajectory) and the counts."""
     import torch
     from eao_fusion_tpu_torch import kernels
-    from eao_fusion_tpu_torch.config import tum_fr3_config
-    from eao_fusion_tpu_torch.io import synthetic, tum
+    from eao_fusion_tpu_torch.io import tum
     from eao_fusion_tpu_torch.pipeline.system import System
-
-    cfg = tum_fr3_config(use_planes=False, use_objects=False,
-                         use_loop_closing=False)
-    t0 = time.perf_counter()
-    seq = synthetic.generate_sequence(n_frames=N_FRAMES, seed=SEED,
-                                      style="arc", camera=cfg.camera)
-    log(f"rendered {N_FRAMES} frames of the seed-{SEED} arc in "
-        f"{time.perf_counter() - t0:.1f} s (host)")
 
     s = System(cfg)
     if s.device.type != "cuda":
@@ -348,13 +533,14 @@ def phase_main_path(dev):
     counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
 
-    err = tum.evaluate_ate_rpe(s.trajectory_tcw(), seq.gt_tcw())
-    tracked = len(s.diags)
+    n = len(seq.frames)
+    err = tum.evaluate_ate_rpe(s.trajectory_tcw(corrected=corrected),
+                               seq.gt_tcw())
     n_ba = len(kf_ms) - 2 if len(kf_ms) >= 2 else 0   # from the 3rd KF on
     track_ms = [m for m, k in zip(frame_ms[1:], is_kf[1:]) if not k]
     kf_frame_ms = [m for m, k in zip(frame_ms[1:], is_kf[1:]) if k]
     summary = {
-        "frames": N_FRAMES, "tracked_frames": tracked,
+        "frames": n, "tracked_frames": len(s.diags),
         "keyframes": s.n_keyframes, "local_ba_runs": n_ba,
         "resets": s.n_resets, "ate_cm": err.ate_rmse * 100.0,
         "median_frame_ms": float(np.median(frame_ms[1:])),
@@ -365,23 +551,132 @@ def phase_main_path(dev):
         "mean_local_mapping_ms": float(np.mean(kf_ms[2:]))
         if len(kf_ms) > 2 else None,
         "first_tracked_frame_ms": frame_ms[1],
-        "fps_after_first": (N_FRAMES - 2) / (sum(frame_ms[2:]) / 1e3),
+        "fps_after_first": (n - 2) / (sum(frame_ms[2:]) / 1e3),
         "max_memory_allocated_mb": peak / 2 ** 20,
+        "map_planes": int(s.map.pl_valid.sum()),
+        "kf_compactions": s.n_kf_compactions,
+        "kf_evictions": s.n_kf_evictions,
         "launches": counts,
     }
-    log("main path: " + json.dumps(summary))
-    log("per-frame ms: " + json.dumps([round(m, 2) for m in frame_ms]))
-    if not err.ate_rmse < 0.02:
-        raise AssertionError(f"ATE {err.ate_rmse * 100:.2f} cm >= 2 cm")
-    if s.n_keyframes < 3 or n_ba < 1:
+    log(f"{tag}: " + json.dumps(summary))
+    log(f"{tag} per-frame ms: " + json.dumps([round(m, 2) for m in frame_ms]))
+    return s, summary, counts
+
+
+def _arc(n_frames, cfg):
+    from eao_fusion_tpu_torch.io import synthetic
+    t0 = time.perf_counter()
+    seq = synthetic.generate_sequence(n_frames=n_frames, seed=SEED,
+                                      style="arc", camera=cfg.camera)
+    log(f"rendered {n_frames} frames of the seed-{SEED} arc in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+    return seq
+
+
+def _check_tracking(summary, counts, ate_cm):
+    """ATE below `ate_cm`, local BA ran, no reset, and the launch counts of
+    the run: K1 twice per tracked frame, K4 once per LM iteration (as
+    often as K2)."""
+    if not summary["ate_cm"] < ate_cm:
+        raise AssertionError(f"ATE {summary['ate_cm']:.2f} cm >= {ate_cm} cm")
+    if summary["keyframes"] < 3 or summary["local_ba_runs"] < 1:
         raise AssertionError("local BA did not run")
-    if s.n_resets:
+    if summary["resets"]:
         raise AssertionError("tracking was lost and reset")
+    tracked = summary["tracked_frames"]
     if counts["pose_opt"] != 2 * tracked:
         raise AssertionError(f"pose kernel launched {counts['pose_opt']} "
                              f"times for {tracked} tracked frames")
     if counts["ba_edge_full"] < 1 or counts["ba_edge_chi2"] < 1:
         raise AssertionError(f"BA edge kernels not launched: {counts}")
+    if counts["chol_solve"] != counts["ba_edge_full"]:
+        raise AssertionError(f"K4 launched {counts['chol_solve']} times for "
+                             f"{counts['ba_edge_full']} LM iterations")
+
+
+def phase_main_path():
+    """The port's System on the card at full width, planes off; returns
+    its summary and the launch counts of the run."""
+    from eao_fusion_tpu_torch.config import tum_fr3_config
+    cfg = tum_fr3_config(use_planes=False, use_objects=False,
+                         use_loop_closing=False)
+    seq = _arc(N_FRAMES, cfg)
+    _, summary, counts = run_system(cfg, seq, "main path, planes off")
+    _check_tracking(summary, counts, ate_cm=2.0)
+    return summary, counts
+
+
+def phase_planes_path():
+    """The slice's main path: the default RGBD configuration with planes
+    on (`tum_fr3_config(use_objects=False, use_loop_closing=False)`) at
+    full width on the 20-frame arc. Holds it to the JAX package's
+    full-config bound (ATE < 1.5 cm), finds the floor (y = 1.2 m) and the
+    back wall (z = 4.5 m) among the map planes, and checks that planes
+    were matched on most tracked frames and that every LM iteration of
+    local BA went through K4."""
+    from eao_fusion_tpu_torch.config import tum_fr3_config
+    cfg = tum_fr3_config(use_objects=False, use_loop_closing=False)
+    if not cfg.use_planes:
+        raise AssertionError("the default configuration has planes off")
+    seq = _arc(N_FRAMES, cfg)
+    s, summary, counts = run_system(cfg, seq, "main path, planes on")
+    _check_tracking(summary, counts, ate_cm=1.5)
+    if counts["chol_solve"] < 1:
+        raise AssertionError("K4 was not launched")
+    pl = s.map.pl_coeff[s.map.pl_valid].cpu().numpy()
+    if len(pl) < 2:
+        raise AssertionError(f"{len(pl)} map planes, expected >= 2")
+    for name, g in (("back wall", [0, 0, 1, -4.5]),
+                    ("floor", [0, 1, 0, -1.2])):
+        g = np.asarray(g, np.float32)
+        e = min(min(np.linalg.norm(p - g), np.linalg.norm(p + g)) for p in pl)
+        log(f"map plane nearest the {name}: coefficient error {e:.4f} "
+            f"(< 0.02)")
+        if not e < 0.02:
+            raise AssertionError(f"no map plane at the {name}")
+    matched = [d["n_planes_matched"] > 0 for d in s.diags]
+    log(f"planes matched on {sum(matched)} of {len(matched)} tracked frames")
+    if sum(matched) < 0.8 * len(matched):
+        raise AssertionError("planes matched on too few tracked frames")
+    return summary, counts
+
+
+def phase_compaction():
+    """Keyframe compaction at full image width and 1024 keypoint slots,
+    planes on: the 24-frame arc with a keyframe allowed every frame into a
+    12-slot keyframe table (local-BA window 12, so K4 runs at D = 72). The
+    capacity is cut from 256 only so that compaction fires within 24
+    frames; the bounds are those of tests/test_kf_lifecycle.py (lifetime
+    keyframes > 12, next_kf <= 12, no reset, corrected-trajectory ATE
+    < 5 cm), and the launch counts are held as in the other System
+    phases."""
+    import dataclasses
+
+    import torch
+    from eao_fusion_tpu_torch.config import tum_fr3_config
+    from eao_fusion_tpu_torch.ops import lie
+    base = tum_fr3_config(use_objects=False, use_loop_closing=False)
+    cfg = dataclasses.replace(
+        base,
+        capacity=dataclasses.replace(base.capacity, max_keyframes=12,
+                                     max_local_ba_kfs=12),
+        tracking=dataclasses.replace(base.tracking, max_frames_between_kf=1))
+    seq = _arc(24, cfg)
+    s, summary, counts = run_system(cfg, seq, "keyframe compaction",
+                                    corrected=True)
+    if not (s.n_keyframes > 12 and int(s.map.next_kf) <= 12
+            and s.n_kf_compactions >= 1):
+        raise AssertionError(f"compaction did not fire: {s.n_keyframes} "
+                             f"keyframes, next_kf {int(s.map.next_kf)}")
+    _check_tracking(summary, counts, ate_cm=5.0)
+    log("keyframe events: " + json.dumps(s.events))
+    # the first frame's true pose is the identity, so the System's world
+    # is the true world: camera-centre error per frame, unaligned
+    centre = [lie.se3_inverse(torch.as_tensor(t))[:, 4:7].numpy()
+              for t in (s.trajectory_tcw(corrected=True), seq.gt_tcw())]
+    err_cm = np.linalg.norm(centre[0] - centre[1], axis=1) * 100.0
+    log("keyframe compaction per-frame position error cm: "
+        + json.dumps([round(float(e), 2) for e in err_cm]))
     return summary, counts
 
 
@@ -427,7 +722,10 @@ def main() -> int:
         cfg = SolverConfig()
         k1 = phase_pose(dev, cfg)
         k2, k3 = phase_edges(dev, cfg)
-        summary, counts = phase_main_path(dev)
+        k4 = phase_chol(dev)
+        phase_main_path()
+        _, counts = phase_planes_path()
+        phase_compaction()
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -446,8 +744,12 @@ def main() -> int:
              source="eao_fusion_tpu_torch/csrc/ba_edge.cu",
              replaces="eao_fusion_tpu/solvers/ba_edge_pallas.py:195",
              launches=counts["ba_edge_chi2"], **k3),
+        dict(name="chol_solve", route="cuda",
+             source="eao_fusion_tpu_torch/csrc/chol_solve.cu",
+             replaces="eao_fusion_tpu/solvers/chol_pallas.py:117",
+             launches=counts["chol_solve"], **k4),
     ]
-    for r in rows:
+    for r in rows[:3]:
         r["library_ms"] = None   # no single PyTorch call computes these
     print(json.dumps({"kernels": rows}))
     print(smi_line)

@@ -29,13 +29,14 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 
 # library name -> source file in csrc/
-SOURCES = {"pose_opt": "pose_opt.cu", "ba_edge": "ba_edge.cu"}
+SOURCES = {"pose_opt": "pose_opt.cu", "ba_edge": "ba_edge.cu",
+           "chol_solve": "chol_solve.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
 
 launches: Dict[str, int] = {"pose_opt": 0, "ba_edge_full": 0,
-                            "ba_edge_chi2": 0}
+                            "ba_edge_chi2": 0, "chol_solve": 0}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -55,6 +56,9 @@ SIGNATURES = {
                            _P, _P, _P, _P, _P, _P, _P, _I,  # edges, E
                            _F, _F, _F, _F, _F, _F, _F,     # cam, gates
                            _P, _P, _P, _P],                # outs, stream
+    },
+    "chol_solve": {
+        "chol_solve_launch": [_P, _P, _P, _I, _I, _P],     # M b x D smem stream
     },
 }
 

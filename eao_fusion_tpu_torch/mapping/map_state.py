@@ -1,5 +1,6 @@
-"""The global map as one fixed-capacity tuple of tensors (port of the
-main-path subset of `eao_fusion_tpu/mapping/map_state.py`).
+"""The global map as one fixed-capacity tuple of tensors (port of
+`eao_fusion_tpu/mapping/map_state.py`: insertion, observation indicators,
+point and keyframe compaction, capacity eviction, point statistics).
 
 Keyframes, points and planes live in dense tensors with validity masks;
 observations are the per-keyframe slot table `kf_pt_idx` ([K, N] point id
@@ -21,6 +22,7 @@ import torch
 
 from eao_fusion_tpu_torch.config import SystemConfig
 from eao_fusion_tpu_torch.ops import lie
+from eao_fusion_tpu_torch.ops.topk import top_k_stable
 from eao_fusion_tpu_torch.types import (FrameFeatures, tree_from_numpy,
                                         tree_to_numpy)
 
@@ -51,7 +53,7 @@ class MapState(NamedTuple):
     pt_found: torch.Tensor       # [P] int32
     pt_visible: torch.Tensor     # [P] int32
     pt_first_frame: torch.Tensor  # [P] int32
-    # --- planes (carried for field parity; the planes slice fills them) ---
+    # --- planes ----------------------------------------------------------
     pl_coeff: torch.Tensor       # [L, 4]
     pl_valid: torch.Tensor       # [L] bool
     pl_boundary: torch.Tensor    # [L, B, 3]
@@ -272,7 +274,8 @@ def compact_points(m: MapState) -> Tuple[MapState, torch.Tensor]:
     slots)."""
     P = m.max_pt
     alive = m.pt_valid
-    new_idx = torch.cumsum(alive.to(torch.int32), 0) - 1
+    # int32 like the JAX remap (torch's cumsum promotes to int64)
+    new_idx = (torch.cumsum(alive.to(torch.int32), 0) - 1).to(torch.int32)
     remap = torch.where(alive, new_idx, -1)
     n_alive = alive.sum().to(torch.int32)
     tgt = new_idx[alive].long()
@@ -300,6 +303,110 @@ def compact_points(m: MapState) -> Tuple[MapState, torch.Tensor]:
                         remap[torch.clamp(m.kf_pt_idx.long(), min=0)], -1)
     m = m._replace(kf_pt_idx=kf_pt)
     return refresh_obs_ind(m), remap
+
+
+def compact_keyframes(m: MapState) -> Tuple[MapState, torch.Tensor]:
+    """Compact valid keyframes into the table prefix, in insertion order,
+    and remap every keyframe-slot reference in the map: the kf_* rows,
+    obs_ind rows, pt_ref_kf, pl_ref_kf and next_kf. Slots freed by
+    keyframe culling become reusable, so lifetime keyframe insertions are
+    unbounded. A point or plane whose reference keyframe went is
+    re-anchored to its first surviving observer; one with no surviving
+    observer is invalidated. The caller remaps its own state (tracking
+    reference, trajectory references) with the returned remap ([K], -1 for
+    dropped slots)."""
+    K = m.max_kf
+    alive = m.kf_valid
+    dev = alive.device
+    new_idx = (torch.cumsum(alive.to(torch.int32), 0) - 1).to(torch.int32)
+    remap = torch.where(alive, new_idx, -1)
+    n_alive = alive.sum().to(torch.int32)
+    tgt = new_idx[alive].long()
+
+    def scat(x, fill):
+        out = torch.full_like(x, fill)
+        out[tgt] = x[alive]
+        return out
+
+    m2 = m._replace(
+        kf_pose=set_rows(lie.se3_identity((K,), device=dev), tgt,
+                         m.kf_pose[alive]),
+        kf_valid=torch.arange(K, device=dev) < n_alive,
+        kf_frame_id=scat(m.kf_frame_id, -1),
+        kf_timestamp=scat(m.kf_timestamp, 0.0),
+        kf_kp_uv=scat(m.kf_kp_uv, 0.0),
+        kf_kp_level=scat(m.kf_kp_level, 0),
+        kf_kp_angle=scat(m.kf_kp_angle, 0.0),
+        kf_kp_depth=scat(m.kf_kp_depth, 0.0),
+        kf_kp_uright=scat(m.kf_kp_uright, -1.0),
+        kf_kp_valid=scat(m.kf_kp_valid, False),
+        kf_desc_pm1=scat(m.kf_desc_pm1, 0),
+        kf_pt_idx=scat(m.kf_pt_idx, -1),
+        kf_by_obj=scat(m.kf_by_obj, False),
+        kf_pl_coeff=scat(m.kf_pl_coeff, 0.0),
+        kf_pl_idx=scat(m.kf_pl_idx, -1),
+        obs_ind=scat(m.obs_ind, False),
+        next_kf=n_alive,
+    )
+
+    def reanchor(ref, observed):
+        """A reference keyframe that survived, remapped; otherwise the
+        first surviving observer ([K, X] indicator), else -1."""
+        rc = torch.clamp(ref.long(), min=0)
+        live = (ref >= 0) & alive[rc]
+        new_ref = torch.where(live, remap[rc], -1)
+        first = torch.argmax(observed.to(torch.int8), dim=0).to(torch.int32)
+        return torch.where(new_ref >= 0, new_ref,
+                           torch.where(observed.any(dim=0), first, -1))
+
+    # --- points: observers from the compacted obs_ind --------------------
+    new_ref = reanchor(m.pt_ref_kf, m2.obs_ind & m2.kf_valid[:, None])
+    pt_valid = m.pt_valid & (new_ref >= 0)
+
+    # --- planes: observers from kf_pl_idx ---------------------------------
+    L = m.pl_coeff.shape[0]
+    pl_tgt = torch.where((m2.kf_pl_idx >= 0) & m2.kf_valid[:, None],
+                         m2.kf_pl_idx.long(), L)
+    pl_ind = torch.zeros((K, L + 1), dtype=torch.bool, device=dev)
+    pl_ind.scatter_(1, pl_tgt, True)
+    new_pref = reanchor(m.pl_ref_kf, pl_ind[:, :L])
+    pl_valid = m.pl_valid & (new_pref >= 0)
+
+    m2 = m2._replace(pt_ref_kf=torch.where(m.pt_valid, new_ref, -1),
+                     pt_valid=pt_valid,
+                     pl_ref_kf=torch.where(m.pl_valid, new_pref, -1),
+                     pl_valid=pl_valid)
+    # points invalidated above leave the observation table too
+    kf_pt = m2.kf_pt_idx
+    kf_pt = torch.where(
+        (kf_pt >= 0) & pt_valid[torch.clamp(kf_pt.long(), min=0)], kf_pt, -1)
+    return refresh_obs_ind(m2._replace(kf_pt_idx=kf_pt)), remap
+
+
+def evict_keyframes(m: MapState, n_evict: int,
+                    protect_recent: int = 10) -> MapState:
+    """Capacity eviction: invalidate up to `n_evict` keyframes least
+    relevant to the current mapping window, for a table full of live
+    keyframes that redundancy culling cannot free (exploration). The
+    `protect_recent` newest keyframes are kept; the rest are scored by their
+    strongest covisibility with those, lowest first, oldest first on ties,
+    with object-created keyframes last. Landmarks left without an observer
+    go at the following `compact_keyframes`."""
+    K = m.max_kf
+    dev = m.kf_valid.device
+    Z = (m.obs_ind & m.kf_valid[:, None]).float()
+    covis = Z @ Z.T
+    idx = torch.arange(K, device=dev)
+    order_rank = torch.where(m.kf_valid, idx, -1)
+    recent_cut = torch.sort(order_rank).values[K - protect_recent]
+    protected = m.kf_valid & (idx >= recent_cut)
+    rel = torch.amax(torch.where(protected[None, :], covis, -1.0), dim=1)
+    # rel counts shared points, so a 1e4 scale keeps idx a tie-break
+    score = rel * 1e4 + idx.float() + torch.where(m.kf_by_obj, 1e8, 0.0)
+    score = torch.where(m.kf_valid & (~protected), score, float("inf"))
+    victim_score, victims = top_k_stable(-score, n_evict)
+    ok = victim_score > float("-inf")
+    return m._replace(kf_valid=set_rows(m.kf_valid, victims[ok], False))
 
 
 def update_point_stats(m: MapState) -> MapState:

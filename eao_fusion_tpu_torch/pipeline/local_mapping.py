@@ -1,8 +1,9 @@
 """Local mapping at keyframe rate: point culling, two-way fusion with the
-covisible neighbours, window selection, local BA, outlier observation
-removal, keyframe culling and point-statistic refresh (port of the RGBD
-path of `eao_fusion_tpu/pipeline/local_mapping.py`; `create_points_mono`
-comes with the monocular slice).
+covisible neighbours, window selection, local BA (with the window's plane
+factors when planes are on), outlier observation removal, keyframe culling
+and point-statistic refresh (port of the RGBD path of
+`eao_fusion_tpu/pipeline/local_mapping.py`; `create_points_mono` comes
+with the monocular slice).
 
 Every top-k whose indices are used goes through `top_k_stable`:
 covisibility counts tie constantly, and `lax.top_k` takes the lower index.
@@ -240,7 +241,14 @@ def local_mapping_step(m: MapState, kf_slot: int, *,
         obs_inv_sigma2=cfg.orb.scale_factor ** (-2.0 * lvl),
         obs_valid=e_ok,
     )
-    res = ba.bundle_adjust_coo(prob, cam=cam5, cfg=cfg.solver,
+    plane_block = None
+    if cfg.use_planes:
+        # fixed-plane factors of the window keyframes' plane observations
+        pl_idx = m.kf_pl_idx[kf_idx]                          # [C, F]
+        pl_c = torch.clamp(pl_idx.long(), min=0)
+        pl_ok = (pl_idx >= 0) & m.pl_valid[pl_c] & sel_valid[:, None]
+        plane_block = (m.pl_coeff[pl_c], m.kf_pl_coeff[kf_idx], pl_ok)
+    res = ba.bundle_adjust_coo(prob, plane_block, cam=cam5, cfg=cfg.solver,
                                n_iters1=cfg.solver.local_ba_iters_first,
                                n_iters2=cfg.solver.local_ba_iters_second,
                                ftol=cfg.solver.local_ba_ftol)

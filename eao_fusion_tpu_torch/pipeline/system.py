@@ -1,11 +1,13 @@
-"""System facade for RGBD tracking with keyframe-rate local mapping (port
-of the RGBD subset of `eao_fusion_tpu/pipeline/system.py`).
+"""System facade for RGBD tracking with plane landmarks and keyframe-rate
+local mapping (port of the RGBD subset of
+`eao_fusion_tpu/pipeline/system.py`).
 
-The host sequences the per-frame `track_frame`, the keyframe-rate
-`insert_keyframe_rgbd` and `local_mapping_step`. Planes, objects, loop
-closing, monocular and stereo input, the online detector, and keyframe
-compaction / eviction come with later slices of the port: a config or a
-call that needs them raises NotImplementedError.
+The host sequences the per-frame plane segmentation and `track_frame`, the
+keyframe-rate `insert_keyframe_rgbd`, plane-map update and
+`local_mapping_step`, and the episodic point and keyframe compaction.
+Objects, loop closing, monocular and stereo input and the online detector
+come with later slices of the port: a config or a call that needs them
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -19,13 +21,11 @@ from eao_fusion_tpu_torch import DeviceLike, resolve_device
 from eao_fusion_tpu_torch.config import SystemConfig
 from eao_fusion_tpu_torch.frontend import extractor
 from eao_fusion_tpu_torch.mapping import map_state as ms
+from eao_fusion_tpu_torch.mapping import plane_map
 from eao_fusion_tpu_torch.ops import lie
+from eao_fusion_tpu_torch.ops import planes as plane_ops
 from eao_fusion_tpu_torch.pipeline import local_mapping, tracking
-from eao_fusion_tpu_torch.types import FrameFeatures
-
-# share of the keyframe table at which the JAX package compacts or evicts
-# keyframes (`System._maybe_compact_keyframes`)
-KF_COMPACTION_SHARE = 0.9
+from eao_fusion_tpu_torch.types import FrameFeatures, FramePlanes
 
 
 def insert_keyframe_rgbd(m: ms.MapState, feats: FrameFeatures,
@@ -50,13 +50,14 @@ def insert_keyframe_rgbd(m: ms.MapState, feats: FrameFeatures,
 
 def _check_slice(cfg: SystemConfig) -> None:
     unported = [name for name, on in (
-        ("use_planes", cfg.use_planes), ("use_objects", cfg.use_objects),
+        ("use_objects", cfg.use_objects),
         ("use_loop_closing", cfg.use_loop_closing),
         ("semantic_online", cfg.semantic_online),
         ("sensor != 'rgbd'", cfg.sensor != "rgbd")) if on]
     if unported:
         raise NotImplementedError(
-            "not ported yet (RGBD tracking + local mapping only): "
+            "not ported yet (RGBD tracking, planes and local mapping "
+            "only): "
             + ", ".join(unported))
 
 
@@ -80,6 +81,9 @@ class System:
         self.diags: List[dict] = []
         self.n_resets = 0
         self.n_pt_compactions = 0
+        self.n_kf_compactions = 0
+        self.n_kf_evictions = 0     # keyframes dropped by capacity eviction
+        self.events: List[dict] = []   # {"frame_id", "event", ...}
 
     def reset(self) -> None:
         """Clear the map and tracking state; the trajectory is kept, with
@@ -104,9 +108,14 @@ class System:
                 "only RGBD input is ported (monocular and stereo come with "
                 "a later slice)")
         cfg = self.cfg
+        depth_t = self._tensor(depth)
         feats = extractor.extract_features(
-            self._tensor(gray), self._tensor(depth), orb_cfg=cfg.orb,
+            self._tensor(gray), depth_t, orb_cfg=cfg.orb,
             cam_cfg=cfg.camera, with_depth=True)
+        planes = None
+        if cfg.use_planes:
+            planes = plane_ops.segment_planes(depth_t, cam=cfg.camera,
+                                              cfg=cfg.planes)
 
         if int(self.track.status) == tracking.STATUS_UNINIT:
             pose = self._tensor(initial_pose if initial_pose is not None
@@ -128,14 +137,16 @@ class System:
                     frame_id=tracking._i32(self.frame_id, dev),
                     last_kf_frame_id=tracking._i32(self.frame_id, dev))
                 self.n_keyframes += 1
+                if planes is not None:
+                    self._update_planes(planes, pose, slot)
             self._record(pose, timestamp)
             self.frame_id += 1
             return pose.cpu().numpy()
 
         self.map, self.track, diag = tracking.track_frame(
-            self.map, self.track, feats, self.frame_id, cfg=cfg)
+            self.map, self.track, feats, self.frame_id, planes, cfg=cfg)
         # one device -> host read for every scalar of the diagnostics
-        names = list(diag)
+        names = [k for k, v in diag.items() if v.dim() == 0]
         vals = torch.stack([diag[k].to(torch.int64).reshape(())
                             for k in names]).tolist()
         diag_h = dict(zip(names, vals))
@@ -161,25 +172,36 @@ class System:
                 last_kf_frame_id=tracking._i32(self.frame_id, self.device),
                 ref_kf=tracking._i32(slot, self.device))
             self.n_keyframes += 1
+            if planes is not None:
+                self._update_planes(planes, self.track.pose, slot)
             self._on_keyframe(slot)
 
         self._record(self.track.pose, timestamp)
         self.frame_id += 1
         return self.track.pose.cpu().numpy()
 
+    def _update_planes(self, planes: FramePlanes, pose: torch.Tensor,
+                       kf_slot: int) -> None:
+        """Keyframe-rate plane landmark update: association redone at the
+        final pose, then merge or insert; the keyframe's plane observations
+        are recorded for the BA plane factors."""
+        assoc = plane_map.associate_planes(self.map, planes, pose,
+                                           cfg=self.cfg)
+        self.map, plane_ids = plane_map.update_plane_map(
+            self.map, planes, assoc, pose, kf_slot, cfg=self.cfg)
+        self.map = plane_map.record_kf_plane_obs(self.map, kf_slot, planes,
+                                                 plane_ids)
+
     def _on_keyframe(self, slot: int) -> None:
-        """Keyframe-rate mapping: culling, fusion, local BA, stat refresh."""
+        """Keyframe-rate mapping: culling, fusion, local BA, stat refresh,
+        then point and keyframe compaction when their tables run low."""
         if self.n_keyframes >= 3:
             self.map = local_mapping.local_mapping_step(self.map, slot,
                                                         cfg=self.cfg)
             # BA may have removed some associations as outliers
             self.track = self.track._replace(kp_pt=self.map.kf_pt_idx[slot])
         self._maybe_compact_points()
-        if int(self.map.next_kf) >= int(KF_COMPACTION_SHARE * self.map.max_kf):
-            # where the JAX package compacts or evicts keyframe slots
-            raise NotImplementedError(
-                "keyframe table nearly full: keyframe compaction and "
-                "eviction come with the loop-closing slice")
+        self._maybe_compact_keyframes()
 
     def _maybe_compact_points(self) -> bool:
         """Point-slot compaction when the insertion cursor runs low:
@@ -189,9 +211,68 @@ class System:
             return False
         self.map, remap = ms.compact_points(self.map)
         self.n_pt_compactions += 1
+        self.events.append({"frame_id": self.frame_id,
+                            "event": "pt_compaction",
+                            "live_pts": int(self.map.pt_valid.sum())})
         kp = self.track.kp_pt
         self.track = self.track._replace(kp_pt=torch.where(
             kp >= 0, remap[torch.clamp(kp.long(), min=0)], -1))
+        return True
+
+    def _maybe_compact_keyframes(self) -> bool:
+        """Keyframe-slot lifecycle: when insertion reaches 0.9 of the table,
+        reclaim the slots that culling freed; if the table is full of live
+        keyframes (exploration), first evict the ones least tied to the
+        recent window. Lifetime keyframe insertions become unbounded. The
+        map's own references are remapped by `compact_keyframes`; here the
+        tracking reference and the trajectory references follow. (The JAX
+        System also drops its pending loop detection and remaps the loop
+        closer's keyframe ids; those come with the loop-closing slice.)"""
+        m = self.map
+        if int(m.next_kf) < int(0.9 * m.max_kf):
+            return False
+        live = int(m.kf_valid.sum())
+        if live > int(0.8 * m.max_kf):
+            # a multiple of 8, as the JAX System buckets it
+            n_evict = max(8, ((live - int(0.7 * m.max_kf) + 7) // 8) * 8)
+            m = ms.evict_keyframes(m, n_evict,
+                                   protect_recent=min(10, m.max_kf // 3))
+            evicted = live - int(m.kf_valid.sum())
+            self.n_kf_evictions += evicted
+            self.events.append({"frame_id": self.frame_id,
+                                "event": "kf_eviction", "n": evicted})
+        kf_pose_old = m.kf_pose.cpu()
+        self.map, remap = ms.compact_keyframes(m)
+        remap_h = remap.cpu().numpy()
+        self.n_kf_compactions += 1
+        self.events.append({"frame_id": self.frame_id,
+                            "event": "kf_compaction",
+                            "live_kfs": int(self.map.kf_valid.sum())})
+
+        # a trajectory entry whose keyframe went is frozen at its absolute
+        # pose
+        new_refs = []
+        for ref, t_cr in self._traj_refs:
+            if ref >= 0 and remap_h[ref] < 0:
+                new_refs.append((-1, lie.se3_compose(
+                    torch.from_numpy(t_cr), kf_pose_old[ref]).numpy()))
+            else:
+                new_refs.append((int(remap_h[ref]) if ref >= 0 else ref,
+                                 t_cr))
+        self._traj_refs = new_refs
+
+        old_ref = int(self.track.ref_kf)
+        r = int(remap_h[old_ref]) if old_ref >= 0 else -1
+        if r < 0:
+            earlier = remap_h[:max(old_ref, 0) + 1]
+            r = int(earlier.max()) if (earlier >= 0).any() else 0
+        kp = self.track.kp_pt
+        # points that lost their last observer leave the association cache
+        kp = torch.where(
+            (kp >= 0) & self.map.pt_valid[torch.clamp(kp.long(), min=0)],
+            kp, -1)
+        self.track = self.track._replace(
+            ref_kf=tracking._i32(r, self.device), kp_pt=kp)
         return True
 
     def _record(self, pose: torch.Tensor, timestamp: float) -> None:

@@ -10,18 +10,18 @@ instead of computing both sides.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from eao_fusion_tpu_torch.config import SystemConfig
 from eao_fusion_tpu_torch.frontend import matcher
-from eao_fusion_tpu_torch.mapping import covisibility
+from eao_fusion_tpu_torch.mapping import covisibility, plane_map
 from eao_fusion_tpu_torch.mapping.map_state import MapState
 from eao_fusion_tpu_torch.ops import lie
 from eao_fusion_tpu_torch.solvers import pose_opt
-from eao_fusion_tpu_torch.types import (FrameFeatures, to_tensor,
-                                        tree_from_numpy)
+from eao_fusion_tpu_torch.types import (FramePlanes, FrameFeatures,
+                                        to_tensor, tree_from_numpy)
 
 STATUS_UNINIT = 0
 STATUS_OK = 1
@@ -104,8 +104,8 @@ def _mark(n: int, idx: torch.Tensor) -> torch.Tensor:
 
 
 def track_frame(m: MapState, ts: TrackState, feats: FrameFeatures,
-                frame_id: int, *, cfg: SystemConfig
-                ) -> Tuple[MapState, TrackState, dict]:
+                frame_id: int, planes: Optional[FramePlanes] = None, *,
+                cfg: SystemConfig) -> Tuple[MapState, TrackState, dict]:
     cam = (cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy)
     cam5 = cam + (cfg.camera.bf,)
     W, H = cfg.camera.width, cfg.camera.height
@@ -198,9 +198,19 @@ def track_frame(m: MapState, ts: TrackState, feats: FrameFeatures,
                         torch.where(res_lm.target_idx >= 0,
                                     res_lm.target_idx, -1))
 
+    # ---- 4b. plane association at the first solve's pose; the measured
+    # planes, sign-aligned to their landmarks, join the second solve ----
+    plane_obs = plane_assoc = None
+    if planes is not None:
+        plane_assoc = plane_map.associate_planes(m, planes, r1.pose, cfg=cfg)
+        plane_obs = plane_map.build_plane_obs(m, planes, plane_assoc)
+        plane_obs = plane_obs._replace(meas_c=plane_map._align_sign(
+            plane_obs.meas_c, plane_obs.plane_w, r1.pose))
+
     # ---- 5. second pose optimization ----------------------------------
     obs2 = _build_pose_obs(m, feats, kp_pt, s)
-    r2 = pose_opt.optimize_pose(r1.pose, obs2, cam=cam5, cfg=cfg.solver)
+    r2 = pose_opt.optimize_pose(r1.pose, obs2, plane_obs, cam=cam5,
+                                cfg=cfg.solver)
     kp_pt = torch.where(r2.inliers & (kp_pt >= 0), kp_pt, -1)
     n_in = (kp_pt >= 0).sum().to(torch.int32)
 
@@ -252,4 +262,7 @@ def track_frame(m: MapState, ts: TrackState, feats: FrameFeatures,
             "kf_trigger": (c1.to(torch.int32)
                            + 2 * (ratio_ok & (n_in > 15)).to(torch.int32)
                            + 4 * (need_close & (n_in > 15)).to(torch.int32))}
+    if plane_assoc is not None:
+        diag["n_planes_matched"] = (plane_assoc >= 0).sum().to(torch.int32)
+        diag["plane_assoc"] = plane_assoc
     return m, new_ts, diag

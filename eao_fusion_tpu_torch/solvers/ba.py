@@ -1,5 +1,7 @@
 """Local bundle adjustment on the COO edge layout (port of
-`eao_fusion_tpu/solvers/ba.py:bundle_adjust_coo`, without `plane_block`).
+`eao_fusion_tpu/solvers/ba.py:bundle_adjust_coo`, with its fixed-plane
+camera factors; `_plane_free_terms` and the global `bundle_adjust` come
+with the loop-closing slice).
 
 Two-phase Levenberg-Marquardt over C cameras, a window of Pw points and E
 edges: phase 1 (≤ n_iters1), a chi2 / positive-depth outlier gate, phase 2
@@ -8,10 +10,12 @@ iteration runs the per-edge pass (`solvers/ba_edge.py`: the CUDA kernel
 for CUDA tensors), sums the camera and point blocks with `index_add_`
 (the JAX package's one-hot [C,E] / [Pw,E] matmuls), gathers the Hcp block
 into a dense [C, Pw] grid through an edge-index table, solves the reduced
-camera system and back-substitutes the points. The accept test and the
-stopping rule read the cost on the host once per iteration (the JAX
-`while_loop` becomes a Python loop); the arithmetic of that host logic is
-done in float32, as the JAX loop does it.
+camera system with the Cholesky solve of `solvers/chol.py` (the CUDA
+kernel K4 for CUDA tensors; the JAX function uses `jnp.linalg.solve`) and
+back-substitutes the points. The accept test and the stopping rule read
+the cost on the host once per iteration (the JAX `while_loop` becomes a
+Python loop); the arithmetic of that host logic is done in float32, as
+the JAX loop does it.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 from eao_fusion_tpu_torch.config import SolverConfig
 from eao_fusion_tpu_torch.ops import lie
-from eao_fusion_tpu_torch.solvers import ba_edge
+from eao_fusion_tpu_torch.solvers import ba_edge, chol
 
 
 class BACooProblem(NamedTuple):
@@ -70,6 +74,46 @@ def _inv3x3(A: torch.Tensor) -> torch.Tensor:
     return M * inv_det[..., None, None]
 
 
+def _plane_terms(cam_pose: torch.Tensor, plane_w: torch.Tensor,
+                 meas_c: torch.Tensor, valid: torch.Tensor,
+                 cfg: SolverConfig):
+    """Per-camera fixed-plane factors: (Hcc_add [C,6,6], bc_add [C,6],
+    cost []), with the residual and Jacobians of the pose solver's plane
+    factor; each measurement is sign-aligned to its predicted normal."""
+    R = lie.quat_to_rotmat(cam_pose[:, :4])                   # [C, 3, 3]
+    n_c = torch.einsum("cij,cfj->cfi", R, plane_w[..., :3])   # [C, F, 3]
+    d_c = plane_w[..., 3] - torch.einsum("cfi,ci->cf", n_c, cam_pose[:, 4:7])
+    n_m = meas_c[..., :3]
+    d_m = meas_c[..., 3]
+    flip = torch.sum(n_c * n_m, dim=-1) < 0
+    n_m = torch.where(flip[..., None], -n_m, n_m)
+    d_m = torch.where(flip, -d_m, d_m)
+
+    r_ang = lie.cross(n_c, n_m)                               # [C, F, 3]
+    r_dst = d_c - d_m                                         # [C, F]
+    chi2 = (cfg.plane_angle_info * torch.sum(r_ang * r_ang, dim=-1)
+            + cfg.plane_dist_info * r_dst * r_dst)
+    hub = torch.clamp(torch.sqrt(cfg.plane_chi2
+                                 / torch.clamp(chi2, min=1e-12)), max=1.0)
+    w = valid.float() * hub * (chi2 <= 4 * cfg.plane_chi2).float()
+
+    J_ang_w = torch.einsum("cfij,cfjk->cfik", -lie.so3_hat(n_m),
+                           -lie.so3_hat(n_c))
+    J_ang = torch.cat([J_ang_w, torch.zeros_like(J_ang_w)], dim=-1)
+    J_dst = torch.cat([torch.zeros_like(n_c), -n_c], dim=-1)  # [C, F, 6]
+    Hcc = (cfg.plane_angle_info
+           * torch.einsum("cfri,cf,cfrj->cij", J_ang, w, J_ang)
+           + cfg.plane_dist_info
+           * torch.einsum("cfi,cf,cfj->cij", J_dst, w, J_dst))
+    bc = -(cfg.plane_angle_info
+           * torch.einsum("cfri,cf,cfr->ci", J_ang, w, r_ang)
+           + cfg.plane_dist_info
+           * torch.einsum("cfi,cf,cf->ci", J_dst, w, r_dst))
+    cost = torch.sum(torch.where(valid, torch.clamp(chi2, max=cfg.plane_chi2),
+                                 0.0))
+    return Hcc, bc, cost
+
+
 def edge_lut(obs_cam: torch.Tensor, tgt: torch.Tensor, C: int, Pw: int
              ) -> torch.Tensor:
     """[C, Pw] edge index of each (camera, point) pair, E where none.
@@ -86,11 +130,14 @@ def edge_lut(obs_cam: torch.Tensor, tgt: torch.Tensor, C: int, Pw: int
     return lut.reshape(C, Pw + 1)[:, :Pw]
 
 
-def bundle_adjust_coo(prob: BACooProblem, *, cam: Tuple[float, ...],
-                      cfg: SolverConfig, n_iters1: int = 5,
-                      n_iters2: int = 10, damping: float = 1e-3,
-                      ftol: float = 1e-4) -> BAResult:
-    """Two-phase LM BA on the COO layout; obs_inlier is [E]."""
+def bundle_adjust_coo(prob: BACooProblem,
+                      plane_block: Optional[Tuple[torch.Tensor, ...]] = None,
+                      *, cam: Tuple[float, ...], cfg: SolverConfig,
+                      n_iters1: int = 5, n_iters2: int = 10,
+                      damping: float = 1e-3, ftol: float = 1e-4) -> BAResult:
+    """Two-phase LM BA on the COO layout; obs_inlier is [E]. `plane_block`
+    = (plane_w [C,F,4], meas_c [C,F,4], valid [C,F]) adds fixed-plane
+    camera factors to the cost and, on the free cameras, to Hcc / bc."""
     C = prob.cam_pose.shape[0]
     Pw = prob.pt_xyz.shape[0]
     E = prob.obs_cam.shape[0]
@@ -120,7 +167,10 @@ def bundle_adjust_coo(prob: BACooProblem, *, cam: Tuple[float, ...],
     def robust_chi2(cam_pose, pt_xyz, active_f):
         c2r, _, _ = ba_edge.edge_pass_chi2(inputs(cam_pose, pt_xyz),
                                            active_f, **chi2_kw)
-        return torch.sum(c2r)
+        total = torch.sum(c2r)
+        if plane_block is not None:
+            total = total + _plane_terms(cam_pose, *plane_block, cfg)[-1]
+        return total
 
     def gn_iter(cam_pose, pt_xyz, active_f, lam: float):
         payc, payp, y = ba_edge.edge_pass_full(inputs(cam_pose, pt_xyz),
@@ -132,6 +182,10 @@ def bundle_adjust_coo(prob: BACooProblem, *, cam: Tuple[float, ...],
         Y = y.T.reshape(E, 6, 3)
         Hcc = acc_c[:, :36].reshape(C, 6, 6)
         bc = -acc_c[:, 36:]
+        if plane_block is not None:
+            Hp, bp_c, _ = _plane_terms(cam_pose, *plane_block, cfg)
+            Hcc = Hcc + Hp * free_cam[:, None, None]
+            bc = bc + bp_c * free_cam[:, None]
         Hpp = acc[:, :9].reshape(Pw, 3, 3) + (lam + 1e-6) * eye3
         bp = -acc[:, 9:]
         Hpp_inv = torch.where(pt_free, _inv3x3(Hpp), 0.0)
@@ -150,7 +204,7 @@ def bundle_adjust_coo(prob: BACooProblem, *, cam: Tuple[float, ...],
                           + eye6 * lam)
         rhs = rhs * free_cam[:, None]
         M = S.permute(0, 2, 1, 3).reshape(C * 6, C * 6)
-        delta_c = torch.linalg.solve(M, rhs.reshape(-1)).reshape(C, 6)
+        delta_c = chol.cholesky_solve(M, rhs.reshape(-1)).reshape(C, 6)
         good = torch.all(torch.isfinite(delta_c))
         delta_c = torch.where(good, delta_c, 0.0)
         t = bp - (A2.T @ delta_c.reshape(-1)).reshape(Pw, 3)

@@ -34,6 +34,18 @@ class FrameFeatures(NamedTuple):
         return self.uv.shape[0]
 
 
+class FramePlanes(NamedTuple):
+    """Per-frame plane observations, fixed capacity P = max_planes_per_frame.
+    Hessian-normal [n, d] in the CAMERA frame with n·x + d = 0, n unit,
+    d >= 0."""
+
+    coeffs: torch.Tensor         # [P, 4] float32 camera-frame plane
+    n_inliers: torch.Tensor      # [P] int32 supporting pixel count
+    valid: torch.Tensor          # [P] bool
+    boundary: torch.Tensor       # [P, B, 3] float32 camera-frame samples
+    boundary_valid: torch.Tensor  # [P, B] bool
+
+
 def to_tensor(x, device) -> torch.Tensor:
     """numpy array / scalar -> tensor on `device`. uint32 arrays keep their
     bits as int32 (torch has no general uint32 arithmetic)."""

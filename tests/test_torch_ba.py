@@ -118,6 +118,66 @@ def test_bundle_adjust_coo_matches_jax(seed):
         cam_rmse(np.asarray(coo.cam_pose), cams_gt) * 0.3
 
 
+def _plane_block(coo, cams_gt, seed=3):
+    """Fixed-plane factors for the cameras of `make_ba_problem`: the floor
+    y = 1.2 m, the back wall z = 7.5 m and a tilted side wall, measured in
+    every camera under its true pose with noise (seeded numpy), one sign
+    flipped, one observation invalid."""
+    r = np.random.default_rng(seed)
+    C = cams_gt.shape[0]
+    n = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [0.8, 0.0, -0.6]])
+    planes_w = np.concatenate([n, [[1.2], [7.5], [1.5]]], 1)
+    R = np.asarray(JL.quat_to_rotmat(jnp.asarray(cams_gt[:, :4])))
+    n_c = np.einsum("cij,fj->cfi", R, n)
+    d_c = planes_w[None, :, 3] - np.einsum("cfi,ci->cf", n_c, cams_gt[:, 4:7])
+    meas = np.concatenate([n_c + r.normal(0, 0.01, n_c.shape),
+                           (d_c + r.normal(0, 0.01, d_c.shape))[..., None]],
+                          -1)
+    meas[..., :3] /= np.linalg.norm(meas[..., :3], axis=-1, keepdims=True)
+    meas[2, 1] = -meas[2, 1]
+    valid = np.ones((C, 3), bool)
+    valid[4, 2] = False
+    plane_w = np.broadcast_to(planes_w, (C, 3, 4))
+    return tuple(np.ascontiguousarray(a, dtype=dt) for a, dt in (
+        (plane_w, np.float32), (meas, np.float32), (valid, bool)))
+
+
+def test_plane_terms_match_jax():
+    """Hcc, bc and cost of the fixed-plane factors at the perturbed
+    cameras, rtol 1e-5 (atol 1e-5 of each output's largest entry)."""
+    coo, cams_gt = _coo(7)
+    blk = _plane_block(coo, cams_gt)
+    cam = np.asarray(coo.cam_pose)
+    ref = JB._plane_terms(jnp.asarray(cam), *(jnp.asarray(a) for a in blk),
+                          CFG)
+    out = TB._plane_terms(torch.from_numpy(cam),
+                          *(torch.from_numpy(a) for a in blk), TCFG)
+    assert float(np.asarray(ref[2])) > 0
+    for a, b in zip(ref, out):
+        a = np.asarray(a)
+        np.testing.assert_allclose(b.numpy(), a, rtol=1e-5,
+                                   atol=1e-5 * np.abs(a).max())
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_bundle_adjust_coo_with_planes_matches_jax(seed):
+    """`bundle_adjust_coo` with a `plane_block` against the JAX XLA path,
+    with the tolerances of the planes-off parity test."""
+    coo, cams_gt = _coo(seed)
+    blk = _plane_block(coo, cams_gt, seed=seed)
+    rj = JB.bundle_adjust_coo(coo, tuple(jnp.asarray(a) for a in blk),
+                              cam=CAM, cfg=CFG, edge_kernel=False)
+    rt = TB.bundle_adjust_coo(_to_torch(coo),
+                              tuple(torch.from_numpy(a) for a in blk),
+                              cam=CAM, cfg=TCFG)
+    assert cam_rmse(np.asarray(rj.cam_pose), rt.cam_pose.numpy()) < 1e-4
+    np.testing.assert_allclose(float(rt.chi2), float(rj.chi2), rtol=1e-3)
+    agree = np.mean(rt.obs_inlier.numpy() == np.asarray(rj.obs_inlier))
+    assert agree > 0.995
+    assert cam_rmse(rt.cam_pose.numpy(), cams_gt) < \
+        cam_rmse(np.asarray(coo.cam_pose), cams_gt) * 0.3
+
+
 def test_duplicate_edge_resolves_to_one_edge():
     """A duplicated (camera, point) edge enters the Hcp grid once — the
     higher edge index wins, as the JAX scatter's last write does — and the

@@ -1,9 +1,11 @@
 """Pose optimization of the port against the JAX package: the plain PyTorch
 version against `_optimize_pose_xla` and the Pallas kernel (interpreted),
 on the 1024-observation problem of test_pose_opt.py (20% outliers, mixed
-mono / stereo, every 17th slot invalid), with and without two planes.
-Tolerances: pose error < 1e-3, inlier agreement > 99.5%, n_inliers within
-5. The CUDA kernel against the plain version runs under the `gpu` marker."""
+mono / stereo, every 17th slot invalid), with no planes, two planes, and
+eight plane slots of which three are invalid (the second solve of
+track_frame gets Q = max_planes_per_frame = 8 slots). Tolerances: pose
+error < 1e-3, inlier agreement > 99.5%, n_inliers within 5. The CUDA
+kernel against the plain version runs under the `gpu` marker."""
 
 import numpy as np
 import pytest
@@ -23,7 +25,16 @@ CFG = SolverConfig()
 TCFG = TC.SolverConfig()
 
 
-def _problem():
+# five planes of the scene (floor, back wall, side walls, ceiling) and the
+# slots of the eight-slot case: -1 marks an unmatched slot, whose landmark
+# is slot 0's (build_plane_obs clamps the index) and whose measurement is
+# wrong; the solve must ignore it
+PLANES_W = np.array([[0, -1, 0, 1.2], [0, 0, -1, 4.5], [1, 0, 0, 2.5],
+                     [-1, 0, 0, 2.5], [0, 1, 0, 1.5]], np.float32)
+SLOTS8 = [0, 1, -1, 2, -1, 3, 4, -1]
+
+
+def _problem(n_slots=2):
     r = np.random.default_rng(7)
     pose_gt, obs, _ = make_problem(r, n=1024, noise=0.3, outlier_frac=0.2)
     ur = np.asarray(obs.uright).copy()
@@ -31,13 +42,24 @@ def _problem():
     valid = np.ones((1024,), bool)
     valid[::17] = False
     obs = obs._replace(uright=jnp.asarray(ur), valid=jnp.asarray(valid))
-    planes_w = np.array([[0, -1, 0, 1.2], [0, 0, -1, 4.5]], np.float32)
     R = np.asarray(JL.quat_to_rotmat(pose_gt[:4]))
-    n_c = planes_w[:, :3] @ R.T
-    d_c = planes_w[:, 3] - n_c @ pose_gt[4:7]
+    n_c = PLANES_W[:, :3] @ R.T
+    d_c = PLANES_W[:, 3] - n_c @ pose_gt[4:7]
     meas = np.concatenate([n_c, d_c[:, None]], axis=1).astype(np.float32)
-    pobs = JP.PlaneObs(plane_w=jnp.asarray(planes_w), meas_c=jnp.asarray(meas),
-                       valid=jnp.ones((2,), bool))
+    slots = [0, 1] if n_slots == 2 else SLOTS8
+    idx = np.maximum(slots, 0)
+    planes_w, meas_c = PLANES_W[idx], meas[idx]
+    bad = np.array(slots) < 0
+    # wrong measurements in the unmatched slots, inside the plane chi2
+    # gate, so that using them would pull the pose: the back wall 15 cm
+    # off, the floor 15 cm off, a side wall's normal tilted by 0.25 rad
+    if bad.any():
+        tilt = np.r_[meas[2, :3] + [0, 0.25, 0], meas[2, 3]]
+        meas_c[bad] = [meas[1] + [0, 0, 0, 0.15], meas[0] + [0, 0, 0, 0.15],
+                       tilt / np.r_[np.linalg.norm(tilt[:3]).repeat(3), 1]]
+    pobs = JP.PlaneObs(plane_w=jnp.asarray(planes_w),
+                       meas_c=jnp.asarray(meas_c.astype(np.float32)),
+                       valid=jnp.asarray(~bad))
     pose0 = jnp.asarray(np.asarray(JL.se3_retract(
         jnp.asarray(pose_gt), jnp.asarray(
             np.r_[0.02, -0.01, 0.02, 0.06, -0.04, 0.05], np.float32))))
@@ -49,6 +71,12 @@ def _to_torch(nt, cls, device="cpu"):
                  for k in cls._fields])
 
 
+def _valid_only(pobs):
+    """The same plane factors with the unmatched slots left out."""
+    keep = np.asarray(pobs.valid)
+    return type(pobs)(*[t[keep] for t in pobs])
+
+
 def _check(ref, pose, inliers, n_inliers):
     assert pose_err(ref.pose, np.asarray(pose)) < 1e-3
     ri = np.asarray(ref.inliers)
@@ -56,9 +84,9 @@ def _check(ref, pose, inliers, n_inliers):
     assert abs(int(ref.n_inliers) - int(n_inliers)) <= 5
 
 
-@pytest.mark.parametrize("with_planes", [False, True])
+@pytest.mark.parametrize("with_planes", [False, True, "8 slots"])
 def test_plain_matches_xla_and_pallas(with_planes):
-    pose0, obs, pobs = _problem()
+    pose0, obs, pobs = _problem(8 if with_planes == "8 slots" else 2)
     p = pobs if with_planes else None
     res = TP.optimize_pose(torch.from_numpy(np.array(pose0)),
                            _to_torch(obs, TP.PoseObs),
@@ -70,6 +98,14 @@ def test_plain_matches_xla_and_pallas(with_planes):
     for ref in (ref_x, ref_p):
         _check(ref, res.pose.numpy(), res.inliers.numpy(), res.n_inliers)
     np.testing.assert_allclose(float(res.chi2), float(ref_x.chi2), rtol=1e-3)
+    if with_planes == "8 slots":
+        # the unmatched slots change nothing (used, they would move the
+        # pose by ~7e-4)
+        res5 = TP.optimize_pose(torch.from_numpy(np.array(pose0)),
+                                _to_torch(obs, TP.PoseObs),
+                                _to_torch(_valid_only(p), TP.PlaneObs),
+                                cam=CAM, cfg=TCFG)
+        assert pose_err(res5.pose.numpy(), res.pose.numpy()) < 1e-4
 
 
 def test_cpu_dispatch_is_the_plain_version():
@@ -101,11 +137,11 @@ def test_kernel_wrapper_never_falls_back():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("with_planes", [False, True])
+@pytest.mark.parametrize("with_planes", [False, True, "8 slots"])
 def test_cuda_kernel_matches_plain(with_planes):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    pose0, obs, pobs = _problem()
+    pose0, obs, pobs = _problem(8 if with_planes == "8 slots" else 2)
     dev = torch.device("cuda")
     args = (torch.as_tensor(np.array(pose0), device=dev),
             _to_torch(obs, TP.PoseObs, dev),
@@ -116,3 +152,8 @@ def test_cuda_kernel_matches_plain(with_planes):
     agree = (ref.inliers == ker.inliers).float().mean().item()
     assert agree > 0.995
     assert abs(int(ref.n_inliers) - int(ker.n_inliers)) <= 5
+    if with_planes == "8 slots":
+        ker5 = TP.optimize_pose_cuda(
+            *args[:2], _to_torch(_valid_only(pobs), TP.PlaneObs, dev),
+            cam=CAM, cfg=TCFG)
+        assert pose_err(ker5.pose.cpu().numpy(), ker.pose.cpu().numpy()) < 1e-4

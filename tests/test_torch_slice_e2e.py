@@ -1,7 +1,7 @@
 """The whole slice against the JAX package: RGBD tracking with
-keyframe-rate local BA over the 20-frame seed-0 arc (small config;
-planes, objects and loop closing off), the port's System on the CPU beside
-the JAX System on the same frames."""
+keyframe-rate local BA over the 20-frame seed-0 arc (small config; objects
+and loop closing off, planes off and on), the port's System on the CPU
+beside the JAX System on the same frames."""
 
 import numpy as np
 import pytest
@@ -26,33 +26,73 @@ def _tcfg(**kw):
         **{**OFF, **kw})
 
 
-def test_slice_matches_jax_system():
+def _run_both(**kw):
+    """The 20-frame seed-0 arc through the JAX System and the port's System
+    (CPU); returns both Systems, the sequence and whether any kernel was
+    launched."""
     seq = synthetic.generate_sequence(n_frames=20, seed=0, style="arc",
                                       cache_dir=synthetic.DEFAULT_CACHE)
     js = JSystem(SystemConfig(
         orb=ORBConfig(n_features=500, max_keypoints=512),
-        capacity=MapCapacity(max_keyframes=64, max_points=4096), **OFF))
-    ts = System(_tcfg(), device="cpu")
+        capacity=MapCapacity(max_keyframes=64, max_points=4096),
+        **{**OFF, **kw}))
+    ts = System(_tcfg(**kw), device="cpu")
     before = dict(kernels.launches)
     for f in seq.frames:
         js.process_frame(f.gray, f.depth, f.timestamp)
         ts.process_frame(f.gray, f.depth, f.timestamp)
-    # the CPU path never touches a kernel
-    assert kernels.launches == before
+    return js, ts, seq, kernels.launches != before
 
-    a, b = ts.trajectory_tcw(), js.trajectory_tcw()
-    assert a.shape == b.shape == (20, 7)
-    # per-frame camera centres within 5 mm, rotations within 0.3 degrees
+
+def _assert_same_trajectory(a, b):
+    """Per-frame camera centres within 5 mm, rotations within 0.3 degrees."""
+    assert a.shape == b.shape
     ca = np.asarray(JL.se3_inverse(a))[:, 4:7]
     cb = np.asarray(JL.se3_inverse(b))[:, 4:7]
     assert np.linalg.norm(ca - cb, axis=1).max() < 5e-3
     dq = np.abs(np.sum(a[:, :4] * b[:, :4], axis=1)).clip(max=1.0)
     assert np.degrees(2 * np.arccos(dq)).max() < 0.3
+
+
+def test_slice_matches_jax_system():
+    js, ts, seq, launched = _run_both()
+    # the CPU path never touches a kernel
+    assert not launched
+
+    a, b = ts.trajectory_tcw(), js.trajectory_tcw()
+    assert a.shape == b.shape == (20, 7)
+    _assert_same_trajectory(a, b)
     assert abs(ts.n_keyframes - js.n_keyframes) <= 1
     assert ts.n_keyframes >= 4                  # local BA ran
     err = tum.evaluate_ate_rpe(a, seq.gt_tcw())
     assert err.ate_rmse < 0.02, err
     assert all(d["n_inliers"] > 50 for d in ts.diags)
+    assert ts.n_resets == 0
+
+
+def test_slice_with_planes_matches_jax_system():
+    """The default RGBD path with planes on: plane segmentation on every
+    frame, plane factors in the second pose solve and in local BA, plane
+    landmarks at every keyframe. Same tolerances as the planes-off run, the
+    same number of map planes in both Systems, and the JAX package's
+    full-config bound ATE < 1.5 cm (tests/test_tracking_e2e.py)."""
+    js, ts, seq, launched = _run_both(use_planes=True)
+    assert not launched
+
+    a, b = ts.trajectory_tcw(), js.trajectory_tcw()
+    assert a.shape == b.shape == (20, 7)
+    _assert_same_trajectory(a, b)
+    assert abs(ts.n_keyframes - js.n_keyframes) <= 1
+    assert ts.n_keyframes >= 4
+    n_pl_t = int(ts.map.pl_valid.sum())
+    assert n_pl_t == int(np.asarray(js.map.pl_valid).sum())
+    assert n_pl_t >= 2
+    # planes are matched on most tracked frames
+    matched = [d["n_planes_matched"] for d in ts.diags]
+    assert sum(m > 0 for m in matched) >= 0.8 * len(matched)
+    assert matched == [d["n_planes_matched"] for d in js.diags]
+    err = tum.evaluate_ate_rpe(a, seq.gt_tcw())
+    assert err.ate_rmse < 0.015, err
     assert ts.n_resets == 0
 
 
@@ -64,8 +104,8 @@ def test_device_defaults_to_the_card(monkeypatch):
         System(_tcfg())
 
 
-@pytest.mark.parametrize("flag", ["use_planes", "use_objects",
-                                  "use_loop_closing", "semantic_online"])
+@pytest.mark.parametrize("flag", ["use_objects", "use_loop_closing",
+                                  "semantic_online"])
 def test_unported_options_raise(flag):
     with pytest.raises(NotImplementedError, match=flag):
         System(_tcfg(**{flag: True}), device="cpu")
@@ -80,16 +120,35 @@ def test_mono_and_stereo_input_raise():
         s.process_frame(gray, gray, right=gray)
 
 
-def test_full_keyframe_table_raises():
-    """Where the JAX package would compact or evict keyframe slots (next_kf
-    at 0.9 of the table), the port stops loudly instead of diverging."""
+def test_planes_option_is_ported():
+    """`use_planes` (the default) is accepted: the first frame segments
+    its planes and makes them map landmarks owned by keyframe 0."""
+    seq = synthetic.generate_sequence(n_frames=20, seed=0, style="arc",
+                                      cache_dir=synthetic.DEFAULT_CACHE)
+    s = System(_tcfg(use_planes=True), device="cpu")
+    s.process_frame(seq.frames[0].gray, seq.frames[0].depth, 0.0)
+    n_pl = int(s.map.pl_valid.sum())
+    assert n_pl >= 2
+    assert (s.map.pl_ref_kf[:n_pl] == 0).all()
+    assert int((s.map.kf_pl_idx[0] >= 0).sum()) == n_pl
+
+
+def test_full_keyframe_table_compacts():
+    """Where next_kf reaches 0.9 of the table, the keyframe slots are
+    compacted (the JAX System's `_maybe_compact_keyframes`): next_kf falls
+    back to the live count, the tracking reference follows its keyframe,
+    and an event is recorded."""
     seq = synthetic.generate_sequence(n_frames=20, seed=0, style="arc",
                                       cache_dir=synthetic.DEFAULT_CACHE)
     s = System(_tcfg(), device="cpu")
     s.process_frame(seq.frames[0].gray, seq.frames[0].depth, 0.0)
     K = s.map.max_kf
-    s._on_keyframe(0)                          # far from full: no error
+    s._on_keyframe(0)                          # far from full: nothing
+    assert s.n_kf_compactions == 0
     s.map = s.map._replace(next_kf=torch.tensor(int(0.9 * K),
                                                 dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="keyframe"):
-        s._on_keyframe(0)
+    s._on_keyframe(0)
+    assert s.n_kf_compactions == 1 and s.n_kf_evictions == 0
+    assert int(s.map.next_kf) == int(s.map.kf_valid.sum()) == 1
+    assert int(s.track.ref_kf) == 0
+    assert s.events[-1]["event"] == "kf_compaction"
