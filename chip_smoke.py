@@ -9,13 +9,17 @@ Phases (any failure exits non-zero and prints no result line):
      (one `nvcc` per source, all started together);
   3. the pose kernel (K1) against its plain PyTorch version, M = 1024,
      with no planes, two planes, and the eight plane slots (three
-     unmatched) that the main path's second solve of a frame gets;
+     unmatched) that the main path's second solve of a frame gets; timed
+     at Q = 0 and Q = 8, and held to one device kernel per call;
   4. the BA edge kernels (K2 full pass, K3 chi2 pass) against their plain
      versions at E = 8192, C = 32, Pw = 2048;
   5. the Cholesky kernel (K4) against its plain version and a float64
      solve at D = 192: local BA's reduced camera system of one LM
-     iteration on phase 4's window, and a random SPD matrix; its time
-     beside `torch.linalg.solve`, the call it replaces;
+     iteration on phase 4's window, and a random SPD matrix; at D = 72 (the
+     compaction phase's window); at the ragged and edge sizes D = 1, 5,
+     31, 33, 190 and 256; and on an indefinite matrix, whose clamped pivot
+     gives a huge finite step; its time at D = 192 and 72 beside
+     `torch.linalg.solve`, the call it replaces;
   6. RGBD tracking with keyframe-rate local BA at full width
      (`tum_fr3_config` with planes, objects and loop closing off: 640x480,
      1024 keypoint slots, 256 keyframes, 16384 points) on the port's own
@@ -95,6 +99,21 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_kernels(fn, reps: int):
+    """Names of the device kernels that `reps` calls of fn() ran, from the
+    profiler's CUPTI trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def device_us(fn, reps: int, kernel: str):
@@ -245,9 +264,17 @@ def phase_pose(dev, cfg):
             pose0, obs, planes, cam=cam5, cfg=cfg), 5, warmup=1)
         dev_us = device_us(lambda: pose_opt.optimize_pose_cuda(
             pose0, obs, planes, cam=cam5, cfg=cfg), 20, "pose_opt_kernel")
-        # pose, 8 channels per observation, 9 per plane slot in; pose,
-        # inlier flags and stats out
-        nbytes = 7 * 4 + 8 * M * 4 + 9 * Q * 4 + (8 + M + 2) * 4
+        names = device_kernels(lambda: pose_opt.optimize_pose_cuda(
+            pose0, obs, planes, cam=cam5, cfg=cfg), 10)
+        log(f"K1 (Q = {Q}): {len(names)} device kernels in 10 calls "
+            f"(1 per call): {sorted(set(names))}")
+        if len(names) != 10 or not all("pose_opt_kernel" in n for n in names):
+            raise AssertionError("K1 is not one device kernel per call")
+        # in: the pose; per observation pts_w, uv, uright, inv_sigma2 (7
+        # floats) and valid (1 byte); per plane slot plane_w, meas_c (8
+        # floats) and valid; out: the pose, the inlier bytes, n_inliers and
+        # the chi2
+        nbytes = 7 * 4 + M * 29 + Q * 33 + 7 * 4 + M + 8
         n_iter = stats["gn_iters"]
         flops = (M * (POSE_FLOPS_PER_OBS_ITER * n_iter
                       + POSE_FLOPS_PER_OBS_CHI2 * (cfg.pose_rounds + 1))
@@ -445,25 +472,62 @@ def _chol_check(name, Mi, bi) -> float:
     return float((xk - xp).abs().max())
 
 
+def spd_problem(D, seed, cond, dev):
+    """SPD [D, D] float32 with eigenvalues log-spaced over `cond`, and a
+    right-hand side (as tests/test_torch_chol.py makes them)."""
+    import torch
+    r = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(r.normal(size=(D, D)))
+    A = (Q * np.logspace(0, np.log10(cond), D)) @ Q.T
+    A = (0.5 * (A + A.T)).astype(np.float32)
+    b = r.normal(size=D).astype(np.float32)
+    return (torch.as_tensor(A, device=dev), torch.as_tensor(b, device=dev))
+
+
+def _chol_indefinite(dev):
+    """The indefinite case of tests/test_torch_chol.py: the last pivot of
+    an SPD matrix negated. The clamp sqrt(max(dsq, 1e-20)) makes the step
+    huge but finite; K4 must agree with its plain version within rtol
+    1e-3 (the step is ~1e20·b, so float32 rounding of the last pivot's
+    sum moves it relatively, not absolutely)."""
+    import torch
+    from eao_fusion_tpu_torch.solvers import chol
+    A, b = spd_problem(24, seed=3, cond=10.0, dev=dev)
+    A[-1, -1] = -A[-1, -1]
+    xk = chol.cholesky_solve(A, b).cpu()
+    xp = chol.cholesky_solve_plain(A, b).cpu()
+    rel = float(((xk - xp).abs() / xp.abs().clamp(min=1e-30)).max())
+    log(f"K4 chol_solve (indefinite, D = 24): finite "
+        f"{bool(torch.isfinite(xk).all())}, max |x| {float(xk.abs().max()):.3g}"
+        f" (> 1e6), relative difference from the plain version {rel:.3g} "
+        f"(< 1e-3)")
+    if not (bool(torch.isfinite(xk).all()) and float(xk.abs().max()) > 1e6
+            and rel < 1e-3):
+        raise AssertionError("K4 mishandles an indefinite pivot")
+
+
 def phase_chol(dev):
     """K4 against its plain version and a float64 solve at the two sizes
     the System phases give it: D = 192 (local BA's 32-keyframe window) and
-    D = 72 (the 12-keyframe window of the compaction phase). Returns its
-    numbers at D = 192, the size of the main path, with D = 72 beside
+    D = 72 (the 12-keyframe window of the compaction phase); then at the
+    sizes that leave the kernel's last 32-wide panel ragged or that reach
+    the TPU kernel's limit of 256, and on an indefinite matrix. Returns
+    its numbers at D = 192, the size of the main path, with D = 72 beside
     them."""
     import torch
     from eao_fusion_tpu_torch.solvers import chol
     M, rhs = schur_system(dev)
     D = M.shape[0]
-    rng = np.random.default_rng(5)
-    Q, _ = np.linalg.qr(rng.normal(size=(D, D)))
-    A = (Q * np.logspace(0, 3, D)) @ Q.T
-    A = torch.as_tensor(0.5 * (A + A.T), dtype=torch.float32, device=dev)
-    b = torch.as_tensor(rng.normal(size=D), dtype=torch.float32, device=dev)
+    A, b = spd_problem(D, seed=5, cond=1e3, dev=dev)
     M72, rhs72 = schur_system(dev, C=12)
     max_err = max(_chol_check("Schur system", M, rhs),
                   _chol_check("random SPD, cond 1e3", A, b))
     err72 = _chol_check("Schur system", M72, rhs72)
+    # the ragged and edge sizes: the kernel's panels are 32 wide
+    for Di in (1, 5, 31, 33, 190, 256):
+        Ai, bi = spd_problem(Di, seed=Di, cond=1e3, dev=dev)
+        _chol_check("random SPD, cond 1e3", Ai, bi)
+    _chol_indefinite(dev)
 
     shapes = {}
     for Mi, bi in ((M, rhs), (M72, rhs72)):
@@ -483,8 +547,8 @@ def phase_chol(dev):
             f"time {_us(dev_us)}, plain {plain_ms:.3f} ms, "
             f"torch.linalg.solve {lib_ms:.4f} ms per call (its getrf "
             f"{_us(lib_us)}), bound {b_ms:.6f} ms ({b_by}); like K1 it is "
-            f"latency-bound: a chain of {Di} dependent column steps and "
-            f"{2 * Di} substitution steps")
+            f"latency-bound: a chain of {-(-Di // 32)} dependent panels "
+            f"and {2 * -(-Di // 32)} substitution tiles")
         shapes[f"D={Di}"] = dict(ms=ms, device_us=dev_us, plain_ms=plain_ms,
                                  bound_ms=b_ms, bound_by=b_by,
                                  library_ms=lib_ms, library_getrf_us=lib_us)

@@ -46,10 +46,11 @@ _F = ctypes.c_float
 # C signatures (argtypes) of each library's entry points
 SIGNATURES = {
     "pose_opt": {
-        "pose_opt_launch": [_P, _P, _I, _P, _I,            # pose0 obs M pl Q
+        "pose_opt_launch": [_P, _P, _P, _P, _P, _P, _I,    # pose0, PoseObs, M
+                            _P, _P, _P, _I,                # PlaneObs, Q
                             _F, _F, _F, _F, _F,            # fx fy cx cy bf
                             _I, _I, _F, _F, _F, _F, _F,    # schedule, gates
-                            _P, _P, _P, _P],               # outs, stream
+                            _P, _P, _P, _P, _P],           # outs, stream
     },
     "ba_edge": {
         "ba_edge_launch": [_I, _P, _I, _P, _I,             # mode cam C pt Pw
@@ -144,9 +145,15 @@ def stream_ptr(device: torch.device) -> int:
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
-    """Validate a tensor handed to a kernel: CUDA, dtype, shape, contiguous."""
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor")
+    """Validate a tensor handed to a kernel: dtype, shape, contiguous, on a
+    CUDA device."""
+    require_layout(t, name, dtype, shape)
+    require_device(t, name)
+
+
+def require_layout(t: torch.Tensor, name: str, dtype: torch.dtype,
+                   shape) -> None:
+    """Raise unless `t` has this dtype and shape and is contiguous."""
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -154,3 +161,13 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def require_device(t: torch.Tensor, name: str,
+                   device: torch.device = None) -> None:
+    """Raise unless `t` lies on a CUDA device (on `device`, if given)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got "
+                         f"{t.device}")

@@ -6,10 +6,10 @@ triangle, with each pivot clamped as sqrt(max(dsq, 1e-20)), then forward
 and back substitution. On an indefinite M the clamp gives a huge but finite
 step, which the LM accept test of `bundle_adjust_coo` rejects.
 
-`cholesky_solve` launches the CUDA kernel `csrc/chol_solve.cu` (K4, one
-thread block, the packed lower triangle in shared memory) for CUDA tensors,
-and runs the plain PyTorch version `cholesky_solve_plain`, the same
-recurrence, for CPU tensors.
+`cholesky_solve` launches the CUDA kernel `csrc/chol_solve.cu` (K4, a
+blocked Cholesky on one thread block, the lower triangle in shared memory
+as padded 32 x 32 tiles) for CUDA tensors, and runs the plain PyTorch
+version `cholesky_solve_plain`, the column recurrence, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -19,16 +19,23 @@ import torch
 from eao_fusion_tpu_torch import kernels
 
 PIVOT_FLOOR = 1e-20
+TILE = 32          # the kernel's panel width and tile size
 # a block may use at most 227 KB of shared memory on Hopper
 MAX_SHARED_BYTES = 227 * 1024
 
 
 def shared_bytes(D: int) -> int:
-    """Shared memory the kernel takes for a D x D system: the packed lower
-    triangle, the right-hand side and the pivot, D(D+1)/2 + D + 1 floats.
-    The wrapper checks it against the block limit and hands it to the
-    launch, which sizes the block's shared memory with it."""
-    return 4 * (D * (D + 1) // 2 + D + 1)
+    """Shared memory the kernel takes for a D x D system, padded to Dp =
+    T·32 (T tiles a side): the T(T+1)/2 tiles of the lower triangle, each
+    32 x 33 floats; the transposed diagonal tile (32 x 32) and panel
+    (32 x (Dp - 32 + 4), its last columns for b's segment); the right-hand
+    side and the reciprocal pivots (Dp each). D <= 288 fits in a block. The wrapper checks it against the
+    block limit and hands it to the launch, which sizes the block's shared
+    memory with it."""
+    T = -(-D // TILE)
+    Dp = T * TILE
+    return 4 * (T * (T + 1) // 2 * TILE * (TILE + 1) + TILE * TILE
+                + TILE * (Dp - TILE + 4) + 2 * Dp)
 
 
 def cholesky_solve(M: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -64,8 +71,8 @@ def cholesky_solve_plain(M: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 
 def cholesky_solve_cuda(M: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """One launch of `csrc/chol_solve.cu`. Raises on what the kernel does
-    not take: a D whose packed triangle does not fit in a block's shared
-    memory, a CPU tensor, another dtype or layout."""
+    not take: a D whose tiles do not fit in a block's shared memory, a CPU
+    tensor, another dtype or layout."""
     D = M.shape[0]
     smem = shared_bytes(D)
     if D < 1 or smem > MAX_SHARED_BYTES:

@@ -26,9 +26,8 @@ from eao_fusion_tpu_torch.config import SolverConfig
 from eao_fusion_tpu_torch.ops import lie
 
 MAX_PLANES = 128
-# the kernel keeps 9 channels per observation and 10 per plane in shared
-# memory; a block may use at most 227 KB of it on Hopper
-MAX_SHARED_BYTES = 227 * 1024
+# the kernel's block of 256 threads holds four observations a thread
+MAX_OBS = 1024
 
 
 class PoseObs(NamedTuple):
@@ -195,46 +194,51 @@ def optimize_pose_cuda(pose0: torch.Tensor, obs: PoseObs,
                        *, cam: Tuple[float, float, float, float, float],
                        cfg: SolverConfig) -> PoseOptResult:
     """The whole schedule in one launch of `csrc/pose_opt.cu` (one thread
-    block; observations in shared memory). Raises on what the kernel does
-    not take."""
+    block, the observations in registers). The kernel reads the inputs
+    where they lie and writes the result's tensors, so a call is one device
+    kernel. Raises, before anything launches, on what the kernel does not
+    take: a CPU tensor, another dtype, shape or a non-contiguous layout,
+    more than MAX_OBS observations or MAX_PLANES planes."""
     dev = pose0.device
     M = obs.valid.shape[0]
     Q = 0 if plane_obs is None else plane_obs.valid.shape[0]
     if Q > MAX_PLANES:
         raise ValueError(f"pose kernel takes at most {MAX_PLANES} planes, "
                          f"got {Q}")
-    if M < 1 or (9 * M + 10 * Q) * 4 > MAX_SHARED_BYTES - 4096:
-        raise ValueError(f"pose kernel: {M} observations do not fit in "
-                         "shared memory")
-    f32 = torch.float32
-    pose_in = pose0.to(f32).contiguous()
-    packed = torch.stack([obs.pts_w[:, 0], obs.pts_w[:, 1], obs.pts_w[:, 2],
-                          obs.uv[:, 0], obs.uv[:, 1], obs.uright,
-                          obs.inv_sigma2, obs.valid.to(f32)]).to(f32)
-    packed = packed.contiguous()                                   # [8, M]
+    if not 1 <= M <= MAX_OBS:
+        raise ValueError(f"pose kernel takes 1 to {MAX_OBS} observations, "
+                         f"got {M}")
+    f32, b8 = torch.float32, torch.bool
+    inputs = [(pose0, "pose0", f32, (7,)),
+              (obs.pts_w, "pts_w", f32, (M, 3)),
+              (obs.uv, "uv", f32, (M, 2)),
+              (obs.uright, "uright", f32, (M,)),
+              (obs.inv_sigma2, "inv_sigma2", f32, (M,)),
+              (obs.valid, "valid", b8, (M,))]
     if Q:
-        planes = torch.cat([plane_obs.plane_w.T, plane_obs.meas_c.T,
-                            plane_obs.valid.to(f32)[None]]).to(f32)
-        planes = planes.contiguous()                               # [9, Q]
-    else:
-        planes = torch.zeros((9, 1), dtype=f32, device=dev)
-    kernels.require(pose_in, "pose0", f32, (7,))
-    kernels.require(packed, "obs", f32, (8, M))
-    kernels.require(planes, "planes", f32, (9, max(Q, 1)))
-    pose_out = torch.empty(8, dtype=f32, device=dev)
-    inl_out = torch.empty(M, dtype=f32, device=dev)
-    stats = torch.empty(2, dtype=f32, device=dev)
+        inputs += [(plane_obs.plane_w, "plane_w", f32, (Q, 4)),
+                   (plane_obs.meas_c, "meas_c", f32, (Q, 4)),
+                   (plane_obs.valid, "plane valid", b8, (Q,))]
+    for t, name, dtype, shape in inputs:
+        kernels.require_layout(t, name, dtype, shape)
+    for t, name, _, _ in inputs:
+        kernels.require_device(t, name, dev)
+    planes = ([t.data_ptr() for t in plane_obs] if Q else [None] * 3)
+    pose = torch.empty(7, dtype=f32, device=dev)
+    inliers = torch.empty(M, dtype=b8, device=dev)
+    n_inliers = torch.empty((), dtype=torch.int32, device=dev)
+    chi2 = torch.empty((), dtype=f32, device=dev)
     fx, fy, cx, cy, bf = (float(c) for c in cam)
     lib = kernels.library("pose_opt")
     err = lib.pose_opt_launch(
-        pose_in.data_ptr(), packed.data_ptr(), M, planes.data_ptr(), Q,
+        pose0.data_ptr(), *(t.data_ptr() for t in obs), M, *planes, Q,
         fx, fy, cx, cy, bf, int(cfg.pose_rounds),
         int(cfg.pose_iters_per_round), float(cfg.chi2_mono),
         float(cfg.chi2_stereo), float(cfg.plane_angle_info),
         float(cfg.plane_dist_info), float(cfg.plane_chi2),
-        pose_out.data_ptr(), inl_out.data_ptr(), stats.data_ptr(),
-        kernels.stream_ptr(dev))
+        pose.data_ptr(), inliers.data_ptr(), n_inliers.data_ptr(),
+        chi2.data_ptr(), kernels.stream_ptr(dev))
     kernels.check(err, "pose_opt_launch")
     kernels.launches["pose_opt"] += 1
-    return PoseOptResult(pose=pose_out[:7], inliers=inl_out > 0.5,
-                         n_inliers=stats[0].to(torch.int32), chi2=stats[1])
+    return PoseOptResult(pose=pose, inliers=inliers, n_inliers=n_inliers,
+                         chi2=chi2)

@@ -104,19 +104,35 @@ def test_bundle_adjust_rejects_an_indefinite_step(monkeypatch):
 
 
 def test_kernel_wrapper_rejects_what_it_cannot_hold():
-    """A D whose packed triangle exceeds a block's shared memory, and a
-    CPU tensor, raise before anything launches."""
+    """A D whose tiles exceed a block's shared memory, and a CPU tensor,
+    raise before anything launches."""
     before = dict(kernels.launches)
     assert TCH.shared_bytes(192) < TCH.MAX_SHARED_BYTES
+    assert TCH.shared_bytes(289) > TCH.MAX_SHARED_BYTES
     with pytest.raises(ValueError, match="shared memory"):
         TCH.cholesky_solve_cuda(torch.zeros(400, 400), torch.zeros(400))
+    with pytest.raises(ValueError, match="shared memory"):
+        TCH.cholesky_solve_cuda(torch.zeros(289, 289), torch.zeros(289))
     with pytest.raises(ValueError, match="CUDA"):
         TCH.cholesky_solve_cuda(torch.eye(8), torch.zeros(8))
     assert kernels.launches == before
 
 
+@pytest.mark.parametrize("D", [1, 5, 31, 33, 72, 190, 192, 256])
+def test_kernel_wrapper_holds_every_size_up_to_256(D):
+    """Every D up to the TPU kernel's 256, ragged ones included, fits in a
+    block's shared memory: the wrapper gets past its size check and stops
+    only at the CPU tensor, launching nothing."""
+    before = dict(kernels.launches)
+    assert TCH.shared_bytes(D) <= TCH.MAX_SHARED_BYTES
+    M, b = _spd(D, seed=D, cond=10.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        TCH.cholesky_solve_cuda(torch.from_numpy(M), torch.from_numpy(b))
+    assert kernels.launches == before
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [24, 192])
+@pytest.mark.parametrize("D", [1, 24, 33, 72, 192, 256])
 def test_cuda_kernel_matches_plain(D):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -128,3 +144,19 @@ def test_cuda_kernel_matches_plain(D):
     torch.cuda.synchronize()
     assert _rel(xk.cpu().numpy(), ref) < 1e-4
     assert _rel(xk.cpu().numpy(), xp.cpu().numpy().astype(np.float64)) < 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_clamps_an_indefinite_pivot():
+    """The indefinite case of test_indefinite_pivot_is_clamped on the card:
+    finite, huge, and within rtol 1e-3 of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M, b = _spd(24, seed=3, cond=10.0)
+    M[-1, -1] = -M[-1, -1]
+    Mc, bc = torch.from_numpy(M).cuda(), torch.from_numpy(b).cuda()
+    xk = TCH.cholesky_solve(Mc, bc).cpu()
+    xp = TCH.cholesky_solve_plain(torch.from_numpy(M), torch.from_numpy(b))
+    assert torch.isfinite(xk).all()
+    assert float(xk.abs().max()) > 1e6
+    np.testing.assert_allclose(xk.numpy(), xp.numpy(), rtol=1e-3)

@@ -136,6 +136,35 @@ def test_kernel_wrapper_never_falls_back():
     assert kernels.launches == before
 
 
+def _bad_inputs(case):
+    """The problem's inputs with one thing the kernel does not take."""
+    pose0, obs, _ = _problem()
+    pose0 = torch.from_numpy(np.array(pose0))
+    obs = _to_torch(obs, TP.PoseObs)
+    if case == "float64 pts_w":
+        obs = obs._replace(pts_w=obs.pts_w.double())
+    elif case == "non-contiguous pts_w":
+        obs = obs._replace(pts_w=obs.pts_w.T.contiguous().T)
+    elif case == "1025 observations":
+        obs = TP.PoseObs(*[torch.cat([t, t[:1]]) for t in obs])
+    return pose0, obs
+
+
+@pytest.mark.parametrize("case, message", [
+    ("cpu", "CUDA"), ("float64 pts_w", "float32"),
+    ("non-contiguous pts_w", "contiguous"),
+    ("1025 observations", "observations")])
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(case, message):
+    """The kernel reads its inputs where they lie, so the wrapper checks
+    each one and raises before anything launches; it copies nothing."""
+    from eao_fusion_tpu_torch import kernels
+    pose0, obs = _bad_inputs(case)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match=message):
+        TP.optimize_pose_cuda(pose0, obs, cam=CAM, cfg=TCFG)
+    assert kernels.launches == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("with_planes", [False, True, "8 slots"])
 def test_cuda_kernel_matches_plain(with_planes):
@@ -157,3 +186,28 @@ def test_cuda_kernel_matches_plain(with_planes):
             *args[:2], _to_torch(_valid_only(pobs), TP.PlaneObs, dev),
             cam=CAM, cfg=TCFG)
         assert pose_err(ker5.pose.cpu().numpy(), ker.pose.cpu().numpy()) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_slots", [0, 8])
+def test_cuda_call_is_one_device_kernel(n_slots):
+    """The wrapper packs nothing and converts nothing: the profiler sees
+    exactly one device kernel per call, with and without the plane slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pose0, obs, pobs = _problem(max(n_slots, 2))
+    dev = torch.device("cuda")
+    args = (torch.as_tensor(np.array(pose0), device=dev),
+            _to_torch(obs, TP.PoseObs, dev),
+            _to_torch(pobs, TP.PlaneObs, dev) if n_slots else None)
+    TP.optimize_pose_cuda(*args, cam=CAM, cfg=TCFG)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            TP.optimize_pose_cuda(*args, cam=CAM, cfg=TCFG)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 5, names
+    assert all("pose_opt_kernel" in n for n in names), names

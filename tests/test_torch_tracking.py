@@ -92,6 +92,38 @@ def test_track_frame_matches_jax(warm):
     assert (mt.pt_found.numpy() == np.asarray(mj.pt_found)).mean() > 0.99
 
 
+def test_track_frame_hands_the_pose_kernel_what_it_takes(warm,
+                                                        monkeypatch):
+    """The pose kernel reads its inputs in place and copies nothing, so
+    both solves of a frame must hand it contiguous float32 / bool tensors
+    of the right shapes (checked here as its wrapper checks them on the
+    card)."""
+    _, tcfg = warm["jcfg"], warm["tcfg"]
+    m = TMS.from_numpy(_np(warm["map"]), "cpu")
+    ts = TT.track_state_from_numpy(_np(warm["track"]), "cpu")
+    feats = tree_from_numpy(FrameFeatures, _np(warm["feats"]), "cpu")
+    solve = TT.pose_opt.optimize_pose
+    calls = []
+
+    def checked(pose0, obs, plane_obs=None, **kw):
+        M = obs.valid.shape[0]
+        want = [(pose0, torch.float32, (7,)),
+                (obs.pts_w, torch.float32, (M, 3)),
+                (obs.uv, torch.float32, (M, 2)),
+                (obs.uright, torch.float32, (M,)),
+                (obs.inv_sigma2, torch.float32, (M,)),
+                (obs.valid, torch.bool, (M,))]
+        for t, dtype, shape in want:
+            assert t.dtype == dtype and tuple(t.shape) == shape
+            assert t.is_contiguous()
+        calls.append(M)
+        return solve(pose0, obs, plane_obs, **kw)
+
+    monkeypatch.setattr(TT.pose_opt, "optimize_pose", checked)
+    TT.track_frame(m, ts, feats, N_WARM, cfg=tcfg)
+    assert calls == [tcfg.orb.max_keypoints] * 2
+
+
 def test_local_mapping_step_matches_jax(warm):
     jcfg, tcfg = warm["jcfg"], warm["tcfg"]
     mj0 = warm["map"]
