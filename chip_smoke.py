@@ -11,8 +11,12 @@ Phases (any failure exits non-zero and prints no result line):
      with no planes, two planes, and the eight plane slots (three
      unmatched) that the main path's second solve of a frame gets; timed
      at Q = 0 and Q = 8, and held to one device kernel per call;
-  4. the BA edge kernels (K2 full pass, K3 chi2 pass) against their plain
-     versions at E = 8192, C = 32, Pw = 2048;
+  4. the BA edge kernels against their plain versions at E = 8192, C = 32,
+     Pw = 2048, with the edges in random and in camera order, through the
+     binding local BA makes once per call: K2 (the full pass with its
+     [C, 42] / [Pw, 12] segment sums, and Y), K3's chi2 sum (also the
+     same bits over 10 calls) and K3's per-edge chi2; each held to one
+     device kernel per call (K2 and its memset);
   5. the Cholesky kernel (K4) against its plain version and a float64
      solve at D = 192: local BA's reduced camera system of one LM
      iteration on phase 4's window, and a random SPD matrix; at D = 72 (the
@@ -66,8 +70,10 @@ POSE_FLOPS_PER_OBS_CHI2 = 40
 POSE_FLOPS_PER_PLANE_ITER = 200
 POSE_FLOPS_PER_PLANE_CHI2 = 30
 # flops of the edge kernels per edge (camera rotation, projection, Huber,
-# 3x9 Jacobian; the full pass adds the 63 Gram entries and 9 rhs sums)
+# 3x9 Jacobian; the full pass adds the 63 Gram entries and 9 rhs sums, and
+# its segment sums one add for each of the 54 summed channels)
 EDGE_FLOPS_FULL = 600
+EDGE_FLOPS_SUMS = 54
 EDGE_FLOPS_CHI2 = 90
 
 
@@ -101,9 +107,9 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_kernels(fn, reps: int):
-    """Names of the device kernels that `reps` calls of fn() ran, from the
-    profiler's CUPTI trace."""
+def device_events(fn, reps: int):
+    """(name, device µs) of every device event (kernels and memsets) that
+    `reps` calls of fn() ran, from the profiler's CUPTI trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -113,7 +119,13 @@ def device_kernels(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [(e.name, e.device_time_total) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_kernels(fn, reps: int):
+    """Names of the device events that `reps` calls of fn() ran."""
+    return [n for n, _ in device_events(fn, reps)]
 
 
 def device_us(fn, reps: int, kernel: str):
@@ -337,67 +349,156 @@ def edge_problem(rng, dev, C=32, Pw=2048, E=8192):
     return x, active
 
 
+def edge_orders(x, active):
+    """The phase-4 window in two edge orders: random camera order, as
+    `edge_problem` draws it, and camera order (a stable sort by camera),
+    as local mapping hands the edges to local BA."""
+    import torch
+    perm = torch.argsort(x.obs_cam.long(), stable=True)
+    by_cam = x._replace(**{k: getattr(x, k)[perm].contiguous() for k in (
+        "obs_cam", "obs_pt", "obs_uv", "obs_ur", "obs_inv_sigma2")})
+    return {"random": (x, active),
+            "camera": (by_cam, active[perm].contiguous())}
+
+
+def _stage_device(fn, kernel: str, reps: int = 20):
+    """Device kernels per call of fn() other than memsets, memsets per
+    call, and the device µs per call of the kernel named `kernel` and of
+    all the call's device work, from the profiler's CUPTI trace."""
+    ev = device_events(fn, reps)
+    kern = [n for n, _ in ev if "memset" not in n.lower()]
+    if not all(kernel in n for n in kern):
+        raise AssertionError(f"{kernel}: other device kernels in its call: "
+                             f"{sorted(set(kern))}")
+    return (len(kern) / reps, (len(ev) - len(kern)) / reps,
+            sum(us for n, us in ev if kernel in n) / reps,
+            sum(us for _, us in ev) / reps)
+
+
 def phase_edges(dev, cfg):
-    """K2 and K3 against their plain versions; returns their numbers."""
+    """K2 (the full pass with its segment sums) and K3 (the chi2 sum and
+    the per-edge chi2) against their plain versions, on the window in
+    random and in camera order, through the binding local BA uses
+    (`ba_edge.EdgePass`); each held to one device kernel per call (K2 may
+    add its memset). Returns their numbers: camera order, the main path's,
+    at the top level, both orders under "per_order"."""
+    import torch
     from eao_fusion_tpu_torch.solvers import ba_edge
-    rng = np.random.default_rng(11)
-    x, active = edge_problem(rng, dev)
+    x0, active0 = edge_problem(np.random.default_rng(11), dev)
     kw = dict(cam=CAM, chi2_mono=cfg.chi2_mono, chi2_stereo=cfg.chi2_stereo)
-    C, Pw, E = x.cam_pose.shape[0], x.pt_xyz.shape[0], x.obs_cam.shape[0]
+    C, Pw, E = x0.cam_pose.shape[0], x0.pt_xyz.shape[0], x0.obs_cam.shape[0]
+    orders2, orders3 = {}, {}
+    for order, (x, active) in edge_orders(x0, active0).items():
+        tgt = torch.where(active > 0, x.obs_pt, Pw).to(torch.int32)
+        edges = ba_edge.EdgePass(x, tgt, **kw)
+        args = (x.cam_pose, x.pt_xyz, active)
 
-    ref = ba_edge.edge_pass_full_plain(x, active, **kw)
-    ker = ba_edge.edge_pass_full(x, active, **kw)
-    full_err = 0.0
-    for name, a, b in zip(("pay_c", "pay_p", "Y"), ref, ker):
-        scale = a.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
-        rel = float(((a - b).abs() / scale).max())
-        full_err = max(full_err, float((a - b).abs().max()))
-        log(f"K2 ba_edge_full {name}: max err / channel max {rel:.3g} "
-            f"(< 1e-4)")
-        if not rel < 1e-4:
-            raise AssertionError(f"K2 disagrees with its plain version "
-                                 f"({name})")
-    # chi2 tolerance: a residual is the difference of two pixel coordinates
-    # of size ~600, which float32 resolves to ~6e-5 px; the kernel's fused
-    # multiply-adds move it by that much, so chi2 = r²/σ² moves by about
-    # 2|r|·6e-5 — relative 1e-3 of max(chi2, 1) covers it
-    ref3 = ba_edge.edge_pass_chi2_plain(x, active, **kw)
-    ker3 = ba_edge.edge_pass_chi2(x, active, **kw)
-    chi2_err = 0.0
-    for name, a, b in zip(("robust", "raw"), ref3[:2], ker3[:2]):
-        rel = float(((a - b).abs() / a.abs().clamp(min=1.0)).max())
-        chi2_err = max(chi2_err, float((a - b).abs().max()))
-        log(f"K3 ba_edge_chi2 {name} chi2: max err / max(chi2, 1) {rel:.3g} "
-            f"(< 1e-3)")
-        if not rel < 1e-3:
-            raise AssertionError(f"K3 disagrees with its plain version "
-                                 f"({name})")
-    if not bool((ref3[2] == ker3[2]).all()):
-        raise AssertionError("K3 behind flags differ from the plain version")
-    log("K3 ba_edge_chi2 behind flags: identical")
+        # K2: the sums per channel over their rows, Y per channel over E
+        ref = ba_edge.edge_sums_plain(x, active, tgt, **kw)
+        ker = edges.full(*args)
+        err2 = 0.0
+        for name, a, b, dim in zip(("acc_c", "acc_p", "Y"), ref, ker,
+                                   (0, 0, 1)):
+            scale = a.abs().amax(dim=dim, keepdim=True).clamp(min=1e-30)
+            rel = float(((a - b).abs() / scale).max())
+            err2 = max(err2, float((a - b).abs().max()))
+            log(f"K2 ba_edge_full ({order} order) {name}: max err / channel"
+                f" max {rel:.3g} (< 1e-4)")
+            if not rel < 1e-4:
+                raise AssertionError(f"K2 disagrees with its plain version "
+                                     f"({name}, {order} order)")
 
-    ms2 = cuda_ms(lambda: ba_edge.edge_pass_full(x, active, **kw), 200)
-    plain2 = cuda_ms(lambda: ba_edge.edge_pass_full_plain(x, active, **kw),
-                     20)
-    ms3 = cuda_ms(lambda: ba_edge.edge_pass_chi2(x, active, **kw), 200)
-    plain3 = cuda_ms(lambda: ba_edge.edge_pass_chi2_plain(x, active, **kw),
-                     20)
-    dev2 = device_us(lambda: ba_edge.edge_pass_full(x, active, **kw), 50,
-                     "ba_edge_kernel")
-    dev3 = device_us(lambda: ba_edge.edge_pass_chi2(x, active, **kw), 50,
-                     "ba_edge_kernel")
-    shared = C * 7 * 4 + Pw * 3 * 4 + C * 4
-    per_edge_in = 4 + 4 + 8 + 4 + 4 + 4
-    b2 = bound(shared + E * (per_edge_in + 72 * 4), E * EDGE_FLOPS_FULL)
-    b3 = bound(shared + E * (per_edge_in + 3 * 4), E * EDGE_FLOPS_CHI2)
-    log(f"K2 timing: kernel {ms2:.4f} ms per call, device time "
-        f"{_us(dev2)}, plain {plain2:.3f} ms, bound {b2[0]:.6f} ms ({b2[1]})")
-    log(f"K3 timing: kernel {ms3:.4f} ms per call, device time "
-        f"{_us(dev3)}, plain {plain3:.3f} ms, bound {b3[0]:.6f} ms ({b3[1]})")
-    return (dict(max_abs_err=full_err, ms=ms2, plain_ms=plain2,
-                 bound_ms=b2[0], bound_by=b2[1]),
-            dict(max_abs_err=chi2_err, ms=ms3, plain_ms=plain3,
-                 bound_ms=b3[0], bound_by=b3[1]))
+        # K3's sum: within 1e-5 of Σ|terms| (a float32 sum of E terms in
+        # another order), and the same bits on every call
+        terms = ba_edge.edge_pass_chi2_plain(x, active, **kw)[0]
+        sums = [edges.chi2_sum(*args).item() for _ in range(10)]
+        d = abs(sums[0] - terms.sum().item())
+        lim = 1e-5 * terms.abs().sum().item()
+        log(f"K3 ba_edge_chi2 sum ({order} order): {sums[0]!r} against "
+            f"{terms.sum().item()!r}, |diff| {d:.3g} (<= {lim:.3g}); "
+            f"{len(set(sums))} distinct value(s) in 10 calls (1)")
+        if not d <= lim:
+            raise AssertionError(f"K3's sum disagrees ({order} order)")
+        if len(set(sums)) != 1:
+            raise AssertionError(f"K3's sum is not bit-identical over "
+                                 f"repeats ({order} order)")
+
+        # K3 per edge. Tolerance: a residual is the difference of two pixel
+        # coordinates of size ~600, which float32 resolves to ~6e-5 px; the
+        # kernel's fused multiply-adds move it by that much, so chi2 =
+        # r²/σ² moves by about 2|r|·6e-5 — relative 1e-3 of max(chi2, 1)
+        # covers it
+        ref3 = ba_edge.edge_pass_chi2_plain(x, active, **kw)
+        ker3 = edges.chi2_edges(*args)
+        err3e = 0.0
+        for name, a, b in zip(("robust", "raw"), ref3[:2], ker3[:2]):
+            rel = float(((a - b).abs() / a.abs().clamp(min=1.0)).max())
+            err3e = max(err3e, float((a - b).abs().max()))
+            log(f"K3 ba_edge_chi2 per edge ({order} order) {name} chi2: max "
+                f"err / max(chi2, 1) {rel:.3g} (< 1e-3)")
+            if not rel < 1e-3:
+                raise AssertionError(f"K3 disagrees with its plain version "
+                                     f"({name}, {order} order)")
+        if not bool((ref3[2] == ker3[2]).all()):
+            raise AssertionError("K3 behind flags differ from the plain "
+                                 "version")
+        log(f"K3 ba_edge_chi2 per edge ({order} order) behind flags: "
+            f"identical")
+
+        n2, m2, us2, all2 = _stage_device(lambda: edges.full(*args),
+                                          "ba_edge_full_kernel")
+        n3, m3, us3, _ = _stage_device(lambda: edges.chi2_sum(*args),
+                                       "ba_edge_chi2_kernel")
+        n3e, _, us3e, _ = _stage_device(lambda: edges.chi2_edges(*args),
+                                        "ba_edge_chi2_kernel")
+        log(f"K2 ({order} order): {n2:g} device kernel(s) and {m2:g} "
+            f"memset(s) per call (1 and <= 1); K3 sum: {n3:g} kernel(s), "
+            f"{m3:g} memset(s) (1 and 0); K3 per edge: {n3e:g} kernel(s)")
+        if n2 != 1 or m2 > 1 or n3 != 1 or m3 != 0 or n3e != 1:
+            raise AssertionError("K2 or K3 is not one device kernel per call")
+
+        ms2 = cuda_ms(lambda: edges.full(*args), 200)
+        plain2 = cuda_ms(lambda: ba_edge.edge_sums_plain(x, active, tgt,
+                                                          **kw), 20)
+        ms3 = cuda_ms(lambda: edges.chi2_sum(*args), 200)
+        plain3 = cuda_ms(lambda: ba_edge.chi2_sum_plain(x, active, **kw), 20)
+        ms3e = cuda_ms(lambda: edges.chi2_edges(*args), 200)
+        plain3e = cuda_ms(lambda: ba_edge.edge_pass_chi2_plain(x, active,
+                                                                **kw), 20)
+        # bytes: each input read once, each output written once; K3 needs
+        # no free-camera flags and no point targets
+        cams, pts = C * 7 * 4, Pw * 3 * 4
+        edge_in = 4 + 4 + 8 + 4 + 4 + 4        # cam, pt, uv, ur, 1/σ², active
+        b2 = bound(cams + pts + C * 4 + E * (edge_in + 4 + 18 * 4)
+                   + (C * 42 + Pw * 12) * 4,
+                   E * (EDGE_FLOPS_FULL + EDGE_FLOPS_SUMS))
+        b3 = bound(cams + pts + E * edge_in + 4, E * (EDGE_FLOPS_CHI2 + 1))
+        b3e = bound(cams + pts + E * (edge_in + 3 * 4), E * EDGE_FLOPS_CHI2)
+        log(f"K2 timing ({order} order): {ms2:.4f} ms per call, device "
+            f"{_us(us2)} kernel, {_us(all2)} with its memset, plain "
+            f"{plain2:.3f} ms, bound {b2[0]:.6f} ms ({b2[1]})")
+        log(f"K3 timing ({order} order): sum {ms3:.4f} ms per call, device "
+            f"{_us(us3)}, plain {plain3:.3f} ms, bound {b3[0]:.6f} ms "
+            f"({b3[1]}); per edge {ms3e:.4f} ms per call, device "
+            f"{_us(us3e)}, plain {plain3e:.3f} ms, bound {b3e[0]:.6f} ms "
+            f"({b3e[1]})")
+        orders2[order] = dict(max_abs_err=err2, ms=ms2, device_us=us2,
+                              device_us_with_memset=all2, plain_ms=plain2,
+                              bound_ms=b2[0], bound_by=b2[1])
+        orders3[order] = dict(max_abs_err=max(d, err3e), ms=ms3,
+                              device_us=us3, plain_ms=plain3,
+                              bound_ms=b3[0], bound_by=b3[1],
+                              per_edge=dict(max_abs_err=err3e, ms=ms3e,
+                                            device_us=us3e, plain_ms=plain3e,
+                                            bound_ms=b3e[0],
+                                            bound_by=b3e[1]))
+    # the rows: camera order's numbers (K3's of its sum variant), and the
+    # largest error of any order and variant
+    k2 = dict(orders2["camera"], per_order=orders2)
+    k3 = dict(orders3["camera"], per_order=orders3)
+    for k in (k2, k3):
+        k["max_abs_err"] = max(o["max_abs_err"] for o in k["per_order"].values())
+    return k2, k3
 
 
 def schur_system(dev, C=32):

@@ -53,10 +53,13 @@ SIGNATURES = {
                             _P, _P, _P, _P, _P],           # outs, stream
     },
     "ba_edge": {
-        "ba_edge_launch": [_I, _P, _I, _P, _I,             # mode cam C pt Pw
-                           _P, _P, _P, _P, _P, _P, _P, _I,  # edges, E
-                           _F, _F, _F, _F, _F, _F, _F,     # cam, gates
-                           _P, _P, _P, _P],                # outs, stream
+        # BaEdgeArgs*, cam_pose, pt_xyz, active, stream
+        "ba_edge_full_launch": [_P, _P, _P, _P, _P],
+        # BaEdgeArgs*, cam_pose, pt_xyz, active, out_sum, out_edges, stream
+        "ba_edge_chi2_launch": [_P, _P, _P, _P, _P, _P, _P],
+        "ba_edge_args_size": [],
+        "ba_edge_threads": [],
+        "ba_edge_max_cameras": [],
     },
     "chol_solve": {
         "chol_solve_launch": [_P, _P, _P, _I, _I, _P],     # M b x D smem stream

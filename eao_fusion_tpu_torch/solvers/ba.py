@@ -5,10 +5,12 @@ with the loop-closing slice).
 
 Two-phase Levenberg-Marquardt over C cameras, a window of Pw points and E
 edges: phase 1 (≤ n_iters1), a chi2 / positive-depth outlier gate, phase 2
-(≤ n_iters2), as `Optimizer::LocalBundleAdjustment` schedules it. Each
-iteration runs the per-edge pass (`solvers/ba_edge.py`: the CUDA kernel
-for CUDA tensors), sums the camera and point blocks with `index_add_`
-(the JAX package's one-hot [C,E] / [Pw,E] matmuls), gathers the Hcp block
+(≤ n_iters2), as `Optimizer::LocalBundleAdjustment` schedules it. The
+edge passes are bound once per call (`solvers/ba_edge.EdgePass`: the CUDA
+kernels for CUDA tensors). Each iteration runs the full pass, which also
+sums the camera and point blocks (the JAX package's one-hot [C,E] /
+[Pw,E] matmuls; inside the kernel on the card, `index_add_` in the plain
+version), and the chi2 sum of the accept test; it gathers the Hcp block
 into a dense [C, Pw] grid through an edge-index table, solves the reduced
 camera system with the Cholesky solve of `solvers/chol.py` (the CUDA
 kernel K4 for CUDA tensors; the JAX function uses `jnp.linalg.solve`) and
@@ -148,37 +150,29 @@ def bundle_adjust_coo(prob: BACooProblem,
     obs_ok0 = prob.obs_valid & (prob.obs_pt >= 0) & prob.cam_valid[cam_idx]
     tgt0 = torch.where(obs_ok0, prob.obs_pt.long(), Pw)
     lut = edge_lut(prob.obs_cam, tgt0, C, Pw)                  # [C, Pw]
-    chi2_kw = dict(cam=cam, chi2_mono=cfg.chi2_mono,
-                   chi2_stereo=cfg.chi2_stereo)
-    obs_pt_c = torch.clamp(prob.obs_pt, 0, Pw - 1).to(torch.int32)
-    obs_cam_c = prob.obs_cam.to(torch.int32).contiguous()
+    # the edge passes, bound once to the fixed part of the problem
+    edges = ba_edge.EdgePass(
+        ba_edge.EdgeInputs(
+            cam_pose=prob.cam_pose, pt_xyz=prob.pt_xyz,
+            obs_cam=prob.obs_cam.to(torch.int32),
+            obs_pt=torch.clamp(prob.obs_pt, 0, Pw - 1).to(torch.int32),
+            obs_uv=prob.obs_uv, obs_ur=prob.obs_ur,
+            obs_inv_sigma2=prob.obs_inv_sigma2, free_cam=free_cam),
+        tgt0, cam=cam, chi2_mono=cfg.chi2_mono, chi2_stereo=cfg.chi2_stereo)
     eye3 = torch.eye(3, dtype=f32, device=dev)
     eye6 = torch.eye(6, dtype=f32, device=dev)
     pt_free = prob.pt_valid[:, None, None]
 
-    def inputs(cam_pose, pt_xyz):
-        return ba_edge.EdgeInputs(
-            cam_pose=cam_pose.contiguous(), pt_xyz=pt_xyz.contiguous(),
-            obs_cam=obs_cam_c, obs_pt=obs_pt_c,
-            obs_uv=prob.obs_uv.contiguous(), obs_ur=prob.obs_ur.contiguous(),
-            obs_inv_sigma2=prob.obs_inv_sigma2.contiguous(),
-            free_cam=free_cam)
-
     def robust_chi2(cam_pose, pt_xyz, active_f):
-        c2r, _, _ = ba_edge.edge_pass_chi2(inputs(cam_pose, pt_xyz),
-                                           active_f, **chi2_kw)
-        total = torch.sum(c2r)
+        total = edges.chi2_sum(cam_pose, pt_xyz, active_f)
         if plane_block is not None:
             total = total + _plane_terms(cam_pose, *plane_block, cfg)[-1]
         return total
 
     def gn_iter(cam_pose, pt_xyz, active_f, lam: float):
-        payc, payp, y = ba_edge.edge_pass_full(inputs(cam_pose, pt_xyz),
-                                               active_f, **chi2_kw)
-        acc_c = torch.zeros((C, 42), dtype=f32, device=dev).index_add_(
-            0, cam_idx, payc.T)
-        acc = torch.zeros((Pw + 1, 12), dtype=f32, device=dev).index_add_(
-            0, tgt0, payp.T)[:Pw]
+        # acc_c, acc and y are the binding's buffers: all used up below,
+        # before the next gn_iter overwrites them
+        acc_c, acc, y = edges.full(cam_pose, pt_xyz, active_f)
         Y = y.T.reshape(E, 6, 3)
         Hcc = acc_c[:, :36].reshape(C, 6, 6)
         bc = -acc_c[:, 36:]
@@ -241,13 +235,13 @@ def bundle_adjust_coo(prob: BACooProblem,
 
     def classify(cam_pose, pt_xyz, thr):
         """Raw chi2 + behind flag for the between-phase outlier gate."""
-        _, chi2, behind = ba_edge.edge_pass_chi2(
-            inputs(cam_pose, pt_xyz), obs_ok0.to(f32), **chi2_kw)
+        _, chi2, behind = edges.chi2_edges(cam_pose, pt_xyz,
+                                           obs_ok0.to(f32))
         return obs_ok0 & (chi2 <= thr) & (behind < 0.5), chi2
 
     thr = torch.where(prob.obs_ur >= 0.0, cfg.chi2_stereo, cfg.chi2_mono)
-    cam_pose, pt_xyz = run_phase(prob.cam_pose, prob.pt_xyz, obs_ok0,
-                                 n_iters1)
+    cam_pose, pt_xyz = run_phase(prob.cam_pose.contiguous(),
+                                 prob.pt_xyz.contiguous(), obs_ok0, n_iters1)
     inlier, _ = classify(cam_pose, pt_xyz, thr)
     cam_pose, pt_xyz = run_phase(cam_pose, pt_xyz, inlier, n_iters2)
     inlier, chi2 = classify(cam_pose, pt_xyz, thr)

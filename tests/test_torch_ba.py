@@ -1,8 +1,11 @@
 """Local BA of the port against the JAX package on the problem of
-test_ba.py (`make_ba_problem` + `dense_to_coo`): the plain edge pass
-against the Pallas kernels (interpreted), `bundle_adjust_coo` against the
-JAX one, and the duplicate (camera, point) edge. The CUDA edge kernels
-against the plain version run under the `gpu` marker."""
+test_ba.py (`make_ba_problem` + `dense_to_coo`): the plain edge passes
+against the Pallas kernels (interpreted), with the segment sums and the
+chi2 sum against the JAX reductions that follow them, the bound
+`EdgePass` on the CPU, `bundle_adjust_coo` against the JAX one, and the
+duplicate (camera, point) edge. The CUDA edge kernels against the plain
+versions, and bundle adjustment on the card against the CPU, run under
+the `gpu` marker."""
 
 import numpy as np
 import pytest
@@ -80,7 +83,7 @@ def test_edge_pass_full_matches_pallas():
     coo, mask = _behind_problem()
     x, act, ein, act_j = _edge_inputs(coo, mask)
     ref = JEP.edge_pass_full(ein, act_j, cam=CAM, interpret=True, **CHI2)
-    out = TE.edge_pass_full(x, act, cam=CAM, **CHI2)
+    out = TE.edge_pass_full_plain(x, act, cam=CAM, **CHI2)
     for a, b in zip(ref, out):
         a = np.asarray(a)
         assert a.shape == tuple(b.shape)          # channel-major [ch, E]
@@ -92,7 +95,7 @@ def test_edge_pass_chi2_matches_pallas():
     coo, mask = _behind_problem()
     x, act, ein, act_j = _edge_inputs(coo, mask)
     ref = JEP.edge_pass_chi2(ein, act_j, cam=CAM, interpret=True, **CHI2)
-    out = TE.edge_pass_chi2(x, act, cam=CAM, **CHI2)
+    out = TE.edge_pass_chi2_plain(x, act, cam=CAM, **CHI2)
     # rtol 1e-4, not 1e-5: the port evaluates the residual one float32 op
     # at a time (numpy float32 reproduces it bit for bit), while XLA's CPU
     # compiler rearranges the interpreted kernel's arithmetic; on ~2% of
@@ -103,6 +106,103 @@ def test_edge_pass_chi2_matches_pallas():
                                atol=1e-5)
     np.testing.assert_array_equal(out[2].numpy(), np.asarray(ref[2]))
     assert np.asarray(ref[2]).sum() > 0          # some edges behind
+
+
+def _tgt0(coo):
+    """The point row each edge is summed into (bundle_adjust_coo's tgt0):
+    the window point, Pw where the edge takes no part."""
+    ok0 = (np.asarray(coo.obs_valid) & (np.asarray(coo.obs_pt) >= 0)
+           & np.asarray(coo.cam_valid)[np.asarray(coo.obs_cam)])
+    return np.where(ok0, np.asarray(coo.obs_pt),
+                    coo.pt_xyz.shape[0]).astype(np.int32)
+
+
+def _sums_problem(device="cpu"):
+    """_behind_problem, with every 40th edge given no point target (tgt0 =
+    Pw, as if it were invalid) while it stays active: the camera sums take
+    it, the point sums leave it out."""
+    coo, mask = _behind_problem()
+    x, act, ein, act_j = _edge_inputs(coo, mask, device=device)
+    valid = np.asarray(coo.obs_valid).copy()
+    valid[::40] = False
+    tgt0 = torch.from_numpy(_tgt0(coo._replace(obs_valid=valid))).to(device)
+    return coo, x, act, ein, act_j, tgt0
+
+
+def _channel_close(ref, out, tol=1e-4):
+    """Each channel (column of a [rows, ch] sum) within `tol` of its largest
+    value."""
+    scale = np.maximum(np.abs(ref).max(axis=0, keepdims=True), 1e-30)
+    assert (np.abs(out - ref) / scale).max() < tol
+
+
+def test_edge_sums_match_pallas():
+    """K2's function: the plain full pass with its segment sums against
+    the interpreted Pallas kernel followed by the one-hot dot_generals of
+    the JAX bundle_adjust_coo, built from the same obs_cam and tgt0."""
+    import jax
+    coo, x, act, ein, act_j, tgt0_t = _sums_problem()
+    C, Pw = coo.cam_pose.shape[0], coo.pt_xyz.shape[0]
+    tgt0 = tgt0_t.numpy()
+    payc, payp, y = JEP.edge_pass_full(ein, act_j, cam=CAM, interpret=True,
+                                       **CHI2)
+    cam_onehot = (jnp.asarray(coo.obs_cam)[None, :]
+                  == jnp.arange(C)[:, None]).astype(jnp.float32)
+    pt_onehot = (jnp.asarray(tgt0)[None, :]
+                 == jnp.arange(Pw)[:, None]).astype(jnp.float32)
+    dims = (((1,), (1,)), ((), ()))
+    acc_c = jax.lax.dot_general(cam_onehot, payc, dims,
+                                precision=jax.lax.Precision.HIGHEST,
+                                preferred_element_type=jnp.float32)
+    acc_p = jax.lax.dot_general(pt_onehot, payp, dims,
+                                precision=jax.lax.Precision.HIGHEST,
+                                preferred_element_type=jnp.float32)
+    out = TE.edge_sums_plain(x, act, tgt0_t, cam=CAM, **CHI2)
+    assert tuple(out[0].shape) == (C, 42) and tuple(out[1].shape) == (Pw, 12)
+    assert (tgt0 == Pw).sum() > 0 and np.abs(np.asarray(acc_c)).max() > 0
+    _channel_close(np.asarray(acc_c), out[0].numpy())
+    _channel_close(np.asarray(acc_p), out[1].numpy())
+    y = np.asarray(y)
+    scale = np.maximum(np.abs(y).max(axis=1, keepdims=True), 1e-30)
+    assert (np.abs(out[2].numpy() - y) / scale).max() < 1e-4
+
+
+def test_chi2_sum_matches_pallas():
+    """K3's sum: the plain Σ robust masked chi2 against jnp.sum of the
+    interpreted Pallas kernel's first output, rtol 1e-4 (the per-edge
+    tolerance of test_edge_pass_chi2_matches_pallas)."""
+    coo, mask = _behind_problem()
+    x, act, ein, act_j = _edge_inputs(coo, mask)
+    ref = jnp.sum(JEP.edge_pass_chi2(ein, act_j, cam=CAM, interpret=True,
+                                     **CHI2)[0])
+    out = TE.chi2_sum_plain(x, act, cam=CAM, **CHI2)
+    assert out.shape == () and float(ref) > 0
+    np.testing.assert_allclose(float(out), float(ref), rtol=1e-4)
+
+
+def test_edge_pass_binding_on_cpu_matches_plain():
+    """The bound EdgePass on CPU tensors gives the plain functions' tensors
+    at new cameras and points, and never touches the kernels."""
+    from eao_fusion_tpu_torch import kernels
+    _, x, act, _, _, tgt0 = _sums_problem()
+    before = dict(kernels.launches)
+    bound = TE.EdgePass(x, tgt0, cam=CAM, **CHI2)
+    r = np.random.default_rng(3)
+    cam_pose = x.cam_pose + torch.from_numpy(
+        r.normal(0, 1e-3, tuple(x.cam_pose.shape)).astype(np.float32))
+    pt_xyz = x.pt_xyz + torch.from_numpy(
+        r.normal(0, 1e-2, tuple(x.pt_xyz.shape)).astype(np.float32))
+    x2 = x._replace(cam_pose=cam_pose, pt_xyz=pt_xyz)
+    for got, want in (
+            (bound.full(cam_pose, pt_xyz, act),
+             TE.edge_sums_plain(x2, act, tgt0, cam=CAM, **CHI2)),
+            ((bound.chi2_sum(cam_pose, pt_xyz, act),),
+             (TE.chi2_sum_plain(x2, act, cam=CAM, **CHI2),)),
+            (bound.chi2_edges(cam_pose, pt_xyz, act),
+             TE.edge_pass_chi2_plain(x2, act, cam=CAM, **CHI2))):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert kernels.launches == before
 
 
 @pytest.mark.parametrize("seed", [7, 8])
@@ -214,15 +314,23 @@ def test_inv3x3_matches_jax():
 def test_cuda_edge_kernels_match_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    coo, mask = _behind_problem()
-    x, act, _, _ = _edge_inputs(coo, mask, device="cuda")
-    ref = TE.edge_pass_full_plain(x, act, cam=CAM, **CHI2)
-    out = TE.edge_pass_full(x, act, cam=CAM, **CHI2)
-    for a, b in zip(ref, out):
-        scale = a.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    _, x, act, _, _, tgt0 = _sums_problem("cuda")
+    bound = TE.EdgePass(x, tgt0, cam=CAM, **CHI2)
+    # K2: Y per channel over the edges, the sums per channel over the rows
+    ref = TE.edge_sums_plain(x, act, tgt0, cam=CAM, **CHI2)
+    out = bound.full(x.cam_pose, x.pt_xyz, act)
+    for a, b, dim in zip(ref, out, (0, 0, 1)):
+        scale = a.abs().amax(dim=dim, keepdim=True).clamp(min=1e-30)
         assert ((a - b).abs() / scale).max().item() < 1e-4
+    # K3's sum within 1e-5 of Σ|terms|, the same bits on every call
+    terms = TE.edge_pass_chi2_plain(x, act, cam=CAM, **CHI2)[0]
+    sums = torch.stack([bound.chi2_sum(x.cam_pose, x.pt_xyz, act).clone()
+                        for _ in range(10)])
+    assert abs(sums[0].item() - terms.sum().item()) <= \
+        1e-5 * terms.abs().sum().item()
+    assert torch.equal(sums, sums[:1].expand(10))
     ref3 = TE.edge_pass_chi2_plain(x, act, cam=CAM, **CHI2)
-    out3 = TE.edge_pass_chi2(x, act, cam=CAM, **CHI2)
+    out3 = bound.chi2_edges(x.cam_pose, x.pt_xyz, act)
     for a, b in zip(ref3[:2], out3[:2]):
         # float32 pixel residuals: the kernel's fused multiply-adds move a
         # residual by ~1e-4 px, chi2 by ~1e-3 of max(chi2, 1)
@@ -238,5 +346,25 @@ def test_cuda_bundle_adjust_matches_cpu():
     rc = TB.bundle_adjust_coo(_to_torch(coo), cam=CAM, cfg=TCFG)
     rg = TB.bundle_adjust_coo(_to_torch(coo, "cuda"), cam=CAM, cfg=TCFG)
     assert cam_rmse(rc.cam_pose.numpy(), rg.cam_pose.cpu().numpy()) < 1e-4
+    agree = (rc.obs_inlier == rg.obs_inlier.cpu()).float().mean().item()
+    assert agree > 0.995
+
+
+@pytest.mark.gpu
+def test_cuda_bundle_adjust_with_planes_matches_cpu():
+    """The twin of test_cuda_bundle_adjust_matches_cpu with the fixed-plane
+    factors of test_bundle_adjust_coo_with_planes_matches_jax."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    coo, cams_gt = _coo(7)
+    blk = _plane_block(coo, cams_gt, seed=7)
+    rc = TB.bundle_adjust_coo(_to_torch(coo),
+                              tuple(torch.from_numpy(a) for a in blk),
+                              cam=CAM, cfg=TCFG)
+    rg = TB.bundle_adjust_coo(_to_torch(coo, "cuda"),
+                              tuple(torch.from_numpy(a).cuda() for a in blk),
+                              cam=CAM, cfg=TCFG)
+    assert cam_rmse(rc.cam_pose.numpy(), rg.cam_pose.cpu().numpy()) < 1e-4
+    np.testing.assert_allclose(float(rg.chi2), float(rc.chi2), rtol=1e-3)
     agree = (rc.obs_inlier == rg.obs_inlier.cpu()).float().mean().item()
     assert agree > 0.995
