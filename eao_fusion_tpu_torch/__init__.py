@@ -1,7 +1,7 @@
 """PyTorch / CUDA port of the object-level SLAM engine `eao_fusion_tpu`.
 
 Each module mirrors the JAX module at the same relative path. The JAX
-package is the reference; this package imports `torch` and numpy only.
+package is the reference; this package imports `torch`, numpy and scipy only.
 
 Solver math stays in full f32 (the JAX package pins its matmul precision
 in `eao_fusion_tpu/ops/precision.py`): TF32 is switched off for matmuls

@@ -1,27 +1,34 @@
-"""System facade for RGBD tracking with plane landmarks and keyframe-rate
-local mapping (port of the RGBD subset of
+"""System facade for RGBD tracking with plane and object landmarks and
+keyframe-rate local mapping (port of the RGBD subset of
 `eao_fusion_tpu/pipeline/system.py`).
 
-The host sequences the per-frame plane segmentation and `track_frame`, the
-keyframe-rate `insert_keyframe_rgbd`, plane-map update and
-`local_mapping_step`, and the episodic point and keyframe compaction.
-Objects, loop closing, monocular and stereo input and the online detector
-come with later slices of the port: a config or a call that needs them
-raises NotImplementedError.
+The host sequences the per-frame plane segmentation, `track_frame` and the
+EAO object lane (frame objects, ensemble association, object update), the
+keyframe-rate `insert_keyframe_rgbd`, plane-map update,
+`local_mapping_step` and object merge, and the episodic point and keyframe
+compaction. Boxes come from the caller (offline box files) or, with
+`semantic_online`, from the port's own YOLOX lane. Loop closing and
+monocular and stereo input come with later slices of the port: a config or
+a call that needs them raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from eao_fusion_tpu_torch import DeviceLike, resolve_device
-from eao_fusion_tpu_torch.config import SystemConfig
-from eao_fusion_tpu_torch.frontend import extractor
+from eao_fusion_tpu_torch.config import COCO_CLASS_WHITELIST, SystemConfig
+from eao_fusion_tpu_torch.frontend import extractor, yolox
 from eao_fusion_tpu_torch.mapping import map_state as ms
 from eao_fusion_tpu_torch.mapping import plane_map
+from eao_fusion_tpu_torch.objects import association
+from eao_fusion_tpu_torch.objects import merge as obj_merge
+from eao_fusion_tpu_torch.objects import object_map as om
+from eao_fusion_tpu_torch.objects import update as obj_update
 from eao_fusion_tpu_torch.ops import lie
 from eao_fusion_tpu_torch.ops import planes as plane_ops
 from eao_fusion_tpu_torch.pipeline import local_mapping, tracking
@@ -50,15 +57,44 @@ def insert_keyframe_rgbd(m: ms.MapState, feats: FrameFeatures,
 
 def _check_slice(cfg: SystemConfig) -> None:
     unported = [name for name, on in (
-        ("use_objects", cfg.use_objects),
         ("use_loop_closing", cfg.use_loop_closing),
-        ("semantic_online", cfg.semantic_online),
         ("sensor != 'rgbd'", cfg.sensor != "rgbd")) if on]
     if unported:
         raise NotImplementedError(
-            "not ported yet (RGBD tracking, planes and local mapping "
-            "only): "
-            + ", ".join(unported))
+            "not ported yet (RGBD tracking, planes, objects, the detector "
+            "lane and local mapping only): " + ", ".join(unported))
+
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+WEIGHT_CANDIDATES = ("data/yolox_s.npz", "data/yolox_synth.npz")
+
+
+def make_detector(device: torch.device) -> yolox.Detector:
+    """The online detector lane (`SemanticOnline`: the reference's YOLOX
+    thread, `src/System.cc:112-114`), from `EAO_YOLOX_WEIGHTS` or the first
+    of `WEIGHT_CANDIDATES` found (relative to the working directory, then
+    to the repo root). With no weights file this raises: the JAX package
+    falls back to random weights with a warning, which feeds garbage
+    detections into the object map."""
+    env_path = os.environ.get("EAO_YOLOX_WEIGHTS")
+    if env_path is not None:
+        if not os.path.exists(env_path):
+            raise FileNotFoundError(
+                f"EAO_YOLOX_WEIGHTS={env_path} does not exist")
+        wpath = env_path
+    else:
+        cands = [p for name in WEIGHT_CANDIDATES
+                 for p in (name, os.path.join(REPO_ROOT, name))]
+        wpath = next((p for p in cands if os.path.exists(p)), None)
+        if wpath is None:
+            raise FileNotFoundError(
+                "online detector: no weights found (" + ", ".join(
+                    WEIGHT_CANDIDATES) + "); train with "
+                "tools/train_yolox.py or set EAO_YOLOX_WEIGHTS")
+    params = yolox.load_params(wpath, device)
+    depth_mult, n_classes = yolox.infer_arch(params)
+    return yolox.Detector(params, depth_mult=depth_mult, n_classes=n_classes)
 
 
 class System:
@@ -84,12 +120,23 @@ class System:
         self.n_kf_compactions = 0
         self.n_kf_evictions = 0     # keyframes dropped by capacity eviction
         self.events: List[dict] = []   # {"frame_id", "event", ...}
+        self.objects = om.empty_table(self.cfg, self.device)
+        self._last_fo: Optional[om.FrameObjects] = None
+        # the object lane's randoms (isolation-forest draws), in place of
+        # the JAX System's PRNGKey(7)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(7)
+        self.n_obj_keyframes = 0    # keyframes inserted for a new object
+        self.detector = (make_detector(self.device)
+                         if self.cfg.semantic_online else None)
 
     def reset(self) -> None:
-        """Clear the map and tracking state; the trajectory is kept, with
-        past entries frozen at their recorded poses."""
+        """Clear the map, object and tracking state; the trajectory is kept,
+        with past entries frozen at their recorded poses."""
         self.map = ms.empty_map(self.cfg, self.device)
         self.track = tracking.init_track_state(self.cfg, self.device)
+        self.objects = om.empty_table(self.cfg, self.device)
+        self._last_fo = None
         self.n_keyframes = 0
         self._traj_refs = [(-1, raw) for raw, _ in
                            zip(self.trajectory, self._traj_refs)]
@@ -102,12 +149,22 @@ class System:
                       timestamp: float = 0.0, boxes=None,
                       initial_pose: Optional[np.ndarray] = None,
                       right=None) -> np.ndarray:
-        """Track one RGBD frame; returns the estimated Tcw [7]."""
+        """Track one RGBD frame; returns the estimated Tcw [7]. `boxes` are
+        the frame's detections, [B, 6] rows (class, x, y, w, h, score);
+        with the online detector and no boxes given, the detector's are
+        used."""
         if depth is None or right is not None:
             raise NotImplementedError(
                 "only RGBD input is ported (monocular and stereo come with "
                 "a later slice)")
         cfg = self.cfg
+        online = self.detector is not None and boxes is None
+        if online:
+            # dispatch detection before feature extraction so that the two
+            # overlap (the reference's InsertImage at frame start,
+            # `src/Tracking.cc:318`)
+            rgb = np.asarray(gray)
+            self.detector.submit(np.stack([rgb, rgb, rgb], axis=-1))
         depth_t = self._tensor(depth)
         feats = extractor.extract_features(
             self._tensor(gray), depth_t, orb_cfg=cfg.orb,
@@ -145,27 +202,61 @@ class System:
 
         self.map, self.track, diag = tracking.track_frame(
             self.map, self.track, feats, self.frame_id, planes, cfg=cfg)
-        # one device -> host read for every scalar of the diagnostics
+
+        # ---- object lane (EAO): frame objects, ensemble association,
+        # object-table update (`Tracking::TrackWithMotionModel` object
+        # block, `src/Tracking.cc:1733-2177`) ----
+        if online:
+            boxes = self.detector.result()      # joins the async detection
+            wl = cfg.objects.class_whitelist
+            if wl is None and self.detector.n_classes == 80:
+                # a COCO-class detector gets the reference's 14-id
+                # whitelist (`src/Tracking.cc:437-441`)
+                wl = COCO_CLASS_WHITELIST
+            if boxes is not None and wl is not None and len(boxes):
+                boxes = boxes[np.isin(boxes[:, 0].astype(np.int64),
+                                      np.asarray(wl))]
+        fo = None
+        new_obj = torch.zeros((), dtype=torch.bool, device=self.device)
+        if cfg.use_objects and boxes is not None and len(boxes):
+            fo, new_obj = self._object_lane(boxes, feats)
+
+        # one device -> host read for every scalar the host gates on: the
+        # diagnostics, the tracking status, whether the lane made an
+        # object, and the keyframe cursor
         names = [k for k, v in diag.items() if v.dim() == 0]
         vals = torch.stack([diag[k].to(torch.int64).reshape(())
-                            for k in names]).tolist()
+                            for k in names] + [
+            self.track.status.to(torch.int64).reshape(()),
+            new_obj.to(torch.int64), self.map.next_kf.to(torch.int64)
+        ]).tolist()
         diag_h = dict(zip(names, vals))
+        status, new_object, next_kf = vals[len(names):]
         self.diags.append(diag_h)
 
-        lost = int(self.track.status) == tracking.STATUS_LOST
         # auto-reset when lost early: with <= 5 keyframes a loss means the
         # initialization was bad
-        if lost and self.n_keyframes <= cfg.tracking.reset_if_lost_below_kfs:
+        if (status == tracking.STATUS_LOST
+                and self.n_keyframes <= cfg.tracking.reset_if_lost_below_kfs):
             self.n_resets += 1
             self.reset()
             self._record(self.track.pose, timestamp)
             self.frame_id += 1
             return self.track.pose.cpu().numpy()
+        if fo is not None and status == tracking.STATUS_OK:
+            self._last_fo = fo
 
-        if diag_h["need_kf"]:
+        # a new map object also triggers a keyframe (the reference's
+        # NeedNewKeyFrame returns 2 on AppearNewObject,
+        # `src/Tracking.cc:2390-2462`)
+        new_object = bool(new_object) and next_kf < self.map.max_kf
+        if diag_h["need_kf"] or new_object:
+            by_obj = new_object and not diag_h["need_kf"]
+            self.n_obj_keyframes += int(by_obj)
             self.map = insert_keyframe_rgbd(
                 self.map, feats, self.track.pose, self.track.kp_pt,
-                self.frame_id, timestamp, cfg=cfg, is_init=False)
+                self.frame_id, timestamp, cfg=cfg, is_init=False,
+                by_obj=by_obj)
             slot = int(self.map.next_kf) - 1
             self.track = self.track._replace(
                 kp_pt=self.map.kf_pt_idx[slot],
@@ -179,6 +270,30 @@ class System:
         self._record(self.track.pose, timestamp)
         self.frame_id += 1
         return self.track.pose.cpu().numpy()
+
+    def _object_lane(self, boxes: np.ndarray, feats: FrameFeatures):
+        """Build this frame's objects, merge the last frame's into them,
+        associate them with the map objects and update the table. The lane
+        runs whatever the tracking status and its table counts only where
+        tracking is OK (a select on the device, so the host reads nothing
+        here). Returns the frame objects and whether a map object was
+        made (a bool tensor)."""
+        cfg, m, ts = self.cfg, self.map, self.track
+        fo = om.build_frame_objects(om.boxes_tensor(boxes, self.device),
+                                    feats, ts.kp_pt, m.pt_xyz, m.pt_valid,
+                                    ts.pose, cfg=cfg)
+        if self._last_fo is not None:
+            fo = om.merge_frame_objects(fo, self._last_fo, m.pt_valid,
+                                        cfg=cfg)
+        assoc = association.ensemble_associate(
+            self.objects, fo, m.pt_xyz, ts.pose, self.frame_id, cfg=cfg)
+        new_tab = obj_update.object_update(
+            self.objects, fo, assoc, m.pt_xyz, ts.pose, self.frame_id,
+            self.generator, cfg=cfg)
+        ok = ts.status == tracking.STATUS_OK
+        made = ok & (new_tab.next_obj > self.objects.next_obj)
+        self.objects = om.table_where(ok, new_tab, self.objects)
+        return fo, made
 
     def _update_planes(self, planes: FramePlanes, pose: torch.Tensor,
                        kf_slot: int) -> None:
@@ -200,6 +315,10 @@ class System:
                                                         cfg=self.cfg)
             # BA may have removed some associations as outliers
             self.track = self.track._replace(kp_pt=self.map.kf_pt_idx[slot])
+        if self.cfg.use_objects:
+            # keyframe-rate object maintenance (`LocalMapping::Run` :86-91)
+            self.objects = obj_merge.merge_and_overlap(
+                self.objects, self.map.pt_xyz, self.generator, cfg=self.cfg)
         self._maybe_compact_points()
         self._maybe_compact_keyframes()
 
@@ -214,9 +333,17 @@ class System:
         self.events.append({"frame_id": self.frame_id,
                             "event": "pt_compaction",
                             "live_pts": int(self.map.pt_valid.sum())})
-        kp = self.track.kp_pt
-        self.track = self.track._replace(kp_pt=torch.where(
-            kp >= 0, remap[torch.clamp(kp.long(), min=0)], -1))
+        def follow(ids):
+            return torch.where(ids >= 0, remap[torch.clamp(ids.long(), min=0)],
+                               -1)
+
+        if self.cfg.use_objects:
+            ids = follow(self.objects.pt_idx)
+            self.objects = self.objects._replace(
+                pt_idx=ids, pt_ok=self.objects.pt_ok & (ids >= 0))
+        self.track = self.track._replace(kp_pt=follow(self.track.kp_pt))
+        # the last frame's objects hold the old point ids
+        self._last_fo = None
         return True
 
     def _maybe_compact_keyframes(self) -> bool:

@@ -1,7 +1,8 @@
 """The whole slice against the JAX package: RGBD tracking with
 keyframe-rate local BA over the 20-frame seed-0 arc (small config; objects
 and loop closing off, planes off and on), the port's System on the CPU
-beside the JAX System on the same frames."""
+beside the JAX System on the same frames; and which options the port
+accepts."""
 
 import numpy as np
 import pytest
@@ -104,11 +105,36 @@ def test_device_defaults_to_the_card(monkeypatch):
         System(_tcfg())
 
 
-@pytest.mark.parametrize("flag", ["use_objects", "use_loop_closing",
-                                  "semantic_online"])
+@pytest.mark.parametrize("flag", ["use_loop_closing"])
 def test_unported_options_raise(flag):
     with pytest.raises(NotImplementedError, match=flag):
         System(_tcfg(**{flag: True}), device="cpu")
+
+
+@pytest.mark.parametrize("flag", ["use_objects", "semantic_online"])
+def test_ported_options_are_accepted(flag):
+    """Objects and the online detector lane are ported: the System starts
+    with an empty object table, and with `semantic_online` a detector
+    loaded from the shipped weights."""
+    s = System(_tcfg(**{flag: True}), device="cpu")
+    assert int(s.objects.valid.sum()) == 0
+    if flag == "semantic_online":
+        assert s.detector is not None and s.detector.n_classes == 8
+    else:
+        assert s.detector is None
+
+
+def test_missing_detector_weights_raise(monkeypatch, tmp_path):
+    """No silent fallback to random weights: a named weights file that does
+    not exist raises, and so does finding none of the default files."""
+    from eao_fusion_tpu_torch.pipeline import system as tsys
+    monkeypatch.setenv("EAO_YOLOX_WEIGHTS", str(tmp_path / "none.npz"))
+    with pytest.raises(FileNotFoundError, match="EAO_YOLOX_WEIGHTS"):
+        System(_tcfg(semantic_online=True), device="cpu")
+    monkeypatch.delenv("EAO_YOLOX_WEIGHTS")
+    monkeypatch.setattr(tsys, "WEIGHT_CANDIDATES", ("data/no_such.npz",))
+    with pytest.raises(FileNotFoundError, match="no weights"):
+        System(_tcfg(semantic_online=True), device="cpu")
 
 
 def test_mono_and_stereo_input_raise():
