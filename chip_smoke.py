@@ -14,9 +14,9 @@ Phases (any failure exits non-zero and prints no result line):
   4. the BA edge kernels against their plain versions at E = 8192, C = 32,
      Pw = 2048, with the edges in random and in camera order, through the
      binding local BA makes once per call: K2 (the full pass with its
-     [C, 42] / [Pw, 12] segment sums, and Y), K3's chi2 sum (also the
-     same bits over 10 calls) and K3's per-edge chi2; each held to one
-     device kernel per call (K2 and its memset);
+     [C, 42] / [Pw, 12] segment sums, and Y; the same bits over 10 calls),
+     K3's chi2 sum (also the same bits over 10 calls) and K3's per-edge
+     chi2; each held to one device kernel per call and no memset;
   5. the Cholesky kernel (K4) against its plain version and a float64
      solve at D = 192: local BA's reduced camera system of one LM
      iteration on phase 4's window, and a random SPD matrix; at D = 72 (the
@@ -31,8 +31,11 @@ Phases (any failure exits non-zero and prints no result line):
   7. the slice's main path, the default RGBD configuration with planes on
      (objects and loop closing off), on the same arc: plane segmentation
      every frame, plane factors in K1 and in local BA, K4 solving local
-     BA's reduced camera system;
-  8. keyframe compaction: the 24-frame arc into a 12-slot keyframe table;
+     BA's reduced camera system; run twice, which must give the same
+     launch counts and the same ATE bits;
+  8. keyframe compaction: the 24-frame arc into a 12-slot keyframe table,
+     its corrected ATE held to the JAX System's on the same cell
+     (`dev/compaction_jax_ate.json`) plus 0.5 cm;
   9. objects, the new main path: the JAX package's default RGBD
      configuration with planes and objects on (`tum_fr3_config(
      use_loop_closing=False)`) on the 20-frame arc, the renderer's boxes
@@ -43,12 +46,26 @@ Phases (any failure exits non-zero and prints no result line):
      the forward and decode + NMS ms beside the forward's bound;
  11. online: the objects configuration with `semantic_online=True` on the
      first 20 frames of the class-textured arc and no boxes;
- 12. one JSON line with every kernel's numbers (launches from phase 7),
+ 12. loop closing: `tum_fr3_config(use_objects=False)` (planes and loop
+     closing on, the global BA on its side thread) with th_depth 70 on the
+     144-frame seed-11 `spin15` sequence (1.5 turns, aperiodic texture);
+     a loop must close and its GBA merge, the corrected trajectory must not
+     be worse than the raw one by more than 0.5 cm (the bounds of
+     tests/test_loop_e2e.py); ms of detection, Sim3, correction (fusion,
+     essential graph), each GBA stage and the whole GBA, and the median
+     tracking frame with a GBA in flight and without;
+ 13. relocalization: the 20-frame arc with the automatic reset off; 12
+     frames, 3 noise frames without depth, then frame 8 again (the bounds
+     of tests/test_reloc_e2e.py); a far revisit on the spin sequence that
+     only BoW relocalization can recover; then localization-only mode
+     over the rest of the arc, which must leave every map tensor
+     bit-identical and insert no keyframe;
+ 14. one JSON line with every kernel's numbers (launches from phase 7),
      the `nvidia-smi` line, and as the last line {"ok": true, "device":
      {...}}.
-Phases 6-9 and 11 each set the launch counts to 0 just before they drive
-the System and read them just after. No phase falls back to the CPU or to
-random weights.
+Phases 6-9 and 11-13 each set the launch counts to 0 just before they
+drive the System and read them just after. No phase falls back to the CPU
+or to random weights, and a failure of the GBA thread fails the run.
 
 All times are measured on the card in this run (CUDA events for kernels,
 the host clock around synchronized work for frames). `bound_ms` is the
@@ -120,25 +137,35 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_events(fn, reps: int):
-    """(name, device µs) of every device event (kernels and memsets) that
-    `reps` calls of fn() ran, from the profiler's CUPTI trace."""
+# a pause at each end of a profiler trace: traced back to back with the
+# profiler's start and stop, 4 of 200 traces of K1 and K2 came back one
+# kernel short or empty; with the pauses, none of 400
+# (dev/torch_profiler_loss.py)
+TRACE_MARGIN_S = 0.02
+
+
+def traced(fn, reps: int):
+    """Profiles `reps` calls of fn(), after one untraced call, inside the
+    margins above; returns the profiler."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return [(e.name, e.device_time_total) for e in prof.events()
+        time.sleep(TRACE_MARGIN_S)
+    return prof
+
+
+def device_events(fn, reps: int):
+    """(name, device µs) of every device event (kernels and memsets) that
+    `reps` calls of fn() ran, from the profiler's CUPTI trace."""
+    from torch.autograd import DeviceType
+    return [(e.name, e.device_time_total) for e in traced(fn, reps).events()
             if e.device_type == DeviceType.CUDA]
-
-
-def device_kernels(fn, reps: int):
-    """Names of the device events that `reps` calls of fn() ran."""
-    return [n for n, _ in device_events(fn, reps)]
 
 
 def device_us(fn, reps: int, kernel: str):
@@ -146,15 +173,7 @@ def device_us(fn, reps: int, kernel: str):
     calls of fn(), from the profiler's CUPTI trace; None if the trace
     shows no such kernel. Unlike `cuda_ms`, this leaves out the host time
     between launches."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    for evt in prof.key_averages():
+    for evt in traced(fn, reps).key_averages():
         if kernel in evt.key and evt.count:
             total = getattr(evt, "device_time_total", None)
             if total is None:
@@ -289,19 +308,12 @@ def phase_pose(dev, cfg):
             pose0, obs, planes, cam=cam5, cfg=cfg), 5, warmup=1)
         dev_us = device_us(lambda: pose_opt.optimize_pose_cuda(
             pose0, obs, planes, cam=cam5, cfg=cfg), 20, "pose_opt_kernel")
-        for attempt in range(1, 4):
-            names = device_kernels(lambda: pose_opt.optimize_pose_cuda(
-                pose0, obs, planes, cam=cam5, cfg=cfg), 10)
-            log(f"K1 (Q = {Q}): {len(names)} device kernels in 10 calls "
-                f"(1 per call): {sorted(set(names))}")
-            if (len(names) > 10
-                    or not all("pose_opt_kernel" in n for n in names)):
-                raise AssertionError("K1 is not one device kernel per call")
-            if len(names) == 10:
-                break
-            # the profiler's trace lost an event: trace again
-        else:
-            raise AssertionError("K1: three traces short of 10 kernels")
+        n1, m1, _, _ = _stage_device(lambda: pose_opt.optimize_pose_cuda(
+            pose0, obs, planes, cam=cam5, cfg=cfg), "pose_opt_kernel", 10)
+        log(f"K1 (Q = {Q}): {n1:g} device kernel(s) and {m1:g} memset(s) "
+            f"per call (1 and 0)")
+        if n1 != 1 or m1 != 0:
+            raise AssertionError("K1 is not one device kernel per call")
         # in: the pose; per observation pts_w, uv, uright, inv_sigma2 (7
         # floats) and valid (1 byte); per plane slot plane_w, meas_c (8
         # floats) and valid; out: the pose, the inlier bytes, n_inliers and
@@ -385,7 +397,7 @@ def _stage_device(fn, kernel: str, reps: int = 20):
     """Device kernels per call of fn() other than memsets, memsets per
     call, and the device µs per call of the kernel named `kernel` and of
     all the call's device work, from the profiler's CUPTI trace."""
-    for _ in range(3):
+    for _ in range(5):
         ev = device_events(fn, reps)
         kern = [n for n, _ in ev if "memset" not in n.lower()]
         if not all(kernel in n for n in kern):
@@ -433,6 +445,17 @@ def phase_edges(dev, cfg):
                 raise AssertionError(f"K2 disagrees with its plain version "
                                      f"({name}, {order} order)")
 
+        # K2 sums in the fixed order of the bind-time layout: the same bits
+        # on every call
+        outs = [[t.clone() for t in edges.full(*args)] for _ in range(10)]
+        same = all(torch.equal(a, b) for o in outs[1:]
+                   for a, b in zip(outs[0], o))
+        log(f"K2 ba_edge_full ({order} order): acc_c, acc_p and Y "
+            f"bit-identical over 10 calls: {same}")
+        if not same:
+            raise AssertionError(f"K2 is not bit-identical over repeats "
+                                 f"({order} order)")
+
         # K3's sum: within 1e-5 of Σ|terms| (a float32 sum of E terms in
         # another order), and the same bits on every call
         terms = ba_edge.edge_pass_chi2_plain(x, active, **kw)[0]
@@ -477,9 +500,9 @@ def phase_edges(dev, cfg):
         n3e, _, us3e, _ = _stage_device(lambda: edges.chi2_edges(*args),
                                         "ba_edge_chi2_kernel")
         log(f"K2 ({order} order): {n2:g} device kernel(s) and {m2:g} "
-            f"memset(s) per call (1 and <= 1); K3 sum: {n3:g} kernel(s), "
+            f"memset(s) per call (1 and 0); K3 sum: {n3:g} kernel(s), "
             f"{m3:g} memset(s) (1 and 0); K3 per edge: {n3e:g} kernel(s)")
-        if n2 != 1 or m2 > 1 or n3 != 1 or m3 != 0 or n3e != 1:
+        if n2 != 1 or m2 != 0 or n3 != 1 or m3 != 0 or n3e != 1:
             raise AssertionError("K2 or K3 is not one device kernel per call")
 
         ms2 = cuda_ms(lambda: edges.full(*args), 200)
@@ -490,8 +513,10 @@ def phase_edges(dev, cfg):
         ms3e = cuda_ms(lambda: edges.chi2_edges(*args), 200)
         plain3e = cuda_ms(lambda: ba_edge.edge_pass_chi2_plain(x, active,
                                                                 **kw), 20)
-        # bytes: each input read once, each output written once; K3 needs
-        # no free-camera flags and no point targets
+        # bytes: each input the function needs read once, each output
+        # written once; K3 needs no free-camera flags and no point targets.
+        # K2's bind-time layouts are a permutation of the camera ids and
+        # point targets counted here, so the bound leaves them out
         cams, pts = C * 7 * 4, Pw * 3 * 4
         edge_in = 4 + 4 + 8 + 4 + 4 + 4        # cam, pt, uv, ur, 1/σ², active
         b2 = bound(cams + pts + C * 4 + E * (edge_in + 4 + 18 * 4)
@@ -500,7 +525,7 @@ def phase_edges(dev, cfg):
         b3 = bound(cams + pts + E * edge_in + 4, E * (EDGE_FLOPS_CHI2 + 1))
         b3e = bound(cams + pts + E * (edge_in + 3 * 4), E * EDGE_FLOPS_CHI2)
         log(f"K2 timing ({order} order): {ms2:.4f} ms per call, device "
-            f"{_us(us2)} kernel, {_us(all2)} with its memset, plain "
+            f"{_us(us2)} kernel, {_us(all2)} all device work, plain "
             f"{plain2:.3f} ms, bound {b2[0]:.6f} ms ({b2[1]})")
         log(f"K3 timing ({order} order): sum {ms3:.4f} ms per call, device "
             f"{_us(us3)}, plain {plain3:.3f} ms, bound {b3[0]:.6f} ms "
@@ -508,7 +533,7 @@ def phase_edges(dev, cfg):
             f"{_us(us3e)}, plain {plain3e:.3f} ms, bound {b3e[0]:.6f} ms "
             f"({b3e[1]})")
         orders2[order] = dict(max_abs_err=err2, ms=ms2, device_us=us2,
-                              device_us_with_memset=all2, plain_ms=plain2,
+                              device_us_all=all2, plain_ms=plain2,
                               bound_ms=b2[0], bound_by=b2[1])
         orders3[order] = dict(max_abs_err=max(d, err3e), ms=ms3,
                               device_us=us3, plain_ms=plain3,
@@ -758,9 +783,10 @@ def lane_summary(calls):
 
 
 def run_system(cfg, seq, tag: str, corrected: bool = False,
-               boxes: bool = False, timers: bool = False):
+               boxes: bool = False, timers: bool = False, on_system=None):
     """Drive `System(cfg)` on the card over `seq`, the launch counts set to
-    0 just before and read just after; `boxes` passes each frame's
+    0 just before and read just after; `on_system(s)` is called on the new
+    System before its first frame; `boxes` passes each frame's
     rendered boxes as offline boxes, `timers` times the object lane's
     stages. Returns the System, its summary (ATE of the raw or, with
     `corrected`, the keyframe-corrected trajectory) and the counts."""
@@ -772,6 +798,8 @@ def run_system(cfg, seq, tag: str, corrected: bool = False,
     s = System(cfg)
     if s.device.type != "cuda":
         raise AssertionError(f"System runs on {s.device}, not on the card")
+    if on_system is not None:
+        on_system(s)
     kf_ms = []
     on_keyframe = s._on_keyframe
 
@@ -786,11 +814,14 @@ def run_system(cfg, seq, tag: str, corrected: bool = False,
     frame_ms, is_kf = [], []
     timing = (lane_timers(lambda: s.frame_id) if timers
               else contextlib.nullcontext([]))
+    lc = s.loop_closer
+    gba = []                       # a GBA was in flight when the frame began
     with timing as calls:
         torch.cuda.synchronize()
         kernels.reset_launches()
         for f in seq.frames:
             n_kf = s.n_keyframes
+            gba.append(lc is not None and lc.gba_inflight())
             t = time.perf_counter()
             s.process_frame(f.gray, f.depth, f.timestamp,
                             boxes=f.boxes if boxes else None)
@@ -806,6 +837,8 @@ def run_system(cfg, seq, tag: str, corrected: bool = False,
     n_ba = len(kf_ms) - 2 if len(kf_ms) >= 2 else 0   # from the 3rd KF on
     track_ms = [m for m, k in zip(frame_ms[1:], is_kf[1:]) if not k]
     kf_frame_ms = [m for m, k in zip(frame_ms[1:], is_kf[1:]) if k]
+    track_gba = [m for m, k, g in zip(frame_ms[1:], is_kf[1:], gba[1:])
+                 if g and not k]
     summary = {
         "frames": n, "tracked_frames": len(s.diags),
         "keyframes": s.n_keyframes, "local_ba_runs": n_ba,
@@ -827,6 +860,18 @@ def run_system(cfg, seq, tag: str, corrected: bool = False,
         "object_keyframes": s.n_obj_keyframes,
         "launches": counts,
     }
+    if lc is not None:
+        no_gba = [m for m, k, g in zip(frame_ms[1:], is_kf[1:], gba[1:])
+                  if not (g or k)]
+        summary.update(
+            loops_closed=s.n_loops_closed, gba_merges=s.n_gba_merges,
+            relocalizations=s.n_relocalizations,
+            reloc_pose_solves=s.reloc_stats.get("pose_solves", 0),
+            tracking_frames_gba_inflight=len(track_gba),
+            median_tracking_frame_ms_gba_inflight=float(
+                np.median(track_gba)) if track_gba else None,
+            median_tracking_frame_ms_no_gba=float(np.median(no_gba))
+            if no_gba else None)
     if timers:
         summary["object_lane"] = lane_summary(calls)
     log(f"{tag}: " + json.dumps(summary))
@@ -855,8 +900,8 @@ def _render(n_frames, camera, class_textures):
 
 def _check_tracking(summary, counts, ate_cm):
     """ATE below `ate_cm`, local BA ran, no reset, and the launch counts of
-    the run: K1 twice per tracked frame, K4 once per LM iteration (as
-    often as K2)."""
+    the run: K1 twice per tracked frame and once per relocalization pose
+    solve, K4 once per LM iteration (as often as K2)."""
     if not summary["ate_cm"] < ate_cm:
         raise AssertionError(f"ATE {summary['ate_cm']:.2f} cm >= {ate_cm} cm")
     if summary["keyframes"] < 3 or summary["local_ba_runs"] < 1:
@@ -864,9 +909,12 @@ def _check_tracking(summary, counts, ate_cm):
     if summary["resets"]:
         raise AssertionError("tracking was lost and reset")
     tracked = summary["tracked_frames"]
-    if counts["pose_opt"] != 2 * tracked:
+    want = 2 * tracked + summary.get("reloc_pose_solves", 0)
+    if counts["pose_opt"] != want:
         raise AssertionError(f"pose kernel launched {counts['pose_opt']} "
-                             f"times for {tracked} tracked frames")
+                             f"times for {tracked} tracked frames and "
+                             f"{summary.get('reloc_pose_solves', 0)} "
+                             f"relocalization solves")
     if counts["ba_edge_full"] < 1 or counts["ba_edge_chi2"] < 1:
         raise AssertionError(f"BA edge kernels not launched: {counts}")
     if counts["chol_solve"] != counts["ba_edge_full"]:
@@ -927,14 +975,21 @@ def phase_compaction():
     12-slot keyframe table (local-BA window 12, so K4 runs at D = 72). The
     capacity is cut from 256 only so that compaction fires within 24
     frames; the bounds are those of tests/test_kf_lifecycle.py (lifetime
-    keyframes > 12, next_kf <= 12, no reset, corrected-trajectory ATE
-    < 5 cm), and the launch counts are held as in the other System
-    phases."""
+    keyframes > 12, next_kf <= 12, no reset), the corrected-trajectory ATE
+    within 0.5 cm of the JAX System's on the same cell
+    (`dev/compaction_jax_ate.json`, made by `dev/compaction_jax_ate.py`:
+    the drift of this cell is the reference's own), and the launch counts
+    are held as in the other System phases."""
     import dataclasses
+    import os
 
     import torch
     from eao_fusion_tpu_torch.config import tum_fr3_config
     from eao_fusion_tpu_torch.ops import lie
+    ref_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dev",
+                            "compaction_jax_ate.json")
+    with open(ref_path) as fh:
+        jax_ate_cm = json.load(fh)["corrected_ate_cm"]
     base = tum_fr3_config(use_objects=False, use_loop_closing=False)
     cfg = dataclasses.replace(
         base,
@@ -948,7 +1003,9 @@ def phase_compaction():
             and s.n_kf_compactions >= 1):
         raise AssertionError(f"compaction did not fire: {s.n_keyframes} "
                              f"keyframes, next_kf {int(s.map.next_kf)}")
-    _check_tracking(summary, counts, ate_cm=5.0)
+    log(f"keyframe compaction: corrected ATE {summary['ate_cm']:.3f} cm "
+        f"against the JAX System's {jax_ate_cm:.3f} cm (bound + 0.5 cm)")
+    _check_tracking(summary, counts, ate_cm=jax_ate_cm + 0.5)
     log("keyframe events: " + json.dumps(s.events))
     # the first frame's true pose is the identity, so the System's world
     # is the true world: camera-centre error per frame, unaligned
@@ -1205,6 +1262,283 @@ def phase_online(objects_summary):
     return summary
 
 
+def phase_planes_twice():
+    """Phase 7 twice in this process: with K2's sums in a fixed order the
+    two runs must give the same launch counts and the same ATE bits.
+    Returns the counts."""
+    (s1, c1), (s2, c2) = phase_planes_path(), phase_planes_path()
+    log(f"main path twice: launches {json.dumps(c1)} and {json.dumps(c2)}; "
+        f"ATE {s1['ate_cm']!r} and {s2['ate_cm']!r} cm")
+    if c1 != c2 or s1["ate_cm"] != s2["ate_cm"]:
+        raise AssertionError("two runs of the main path differ")
+    return c1
+
+
+LOOP_FRAMES = 144
+LOOP_SEED = 11
+
+
+def _loop_cfg():
+    """`tum_fr3_config(use_objects=False)`: planes and loop closing on, the
+    GBA on its side thread, at full width; th_depth 70 (5.2 m), since the
+    synthetic room's walls lie beyond the default 3 m close-point
+    threshold, which starves keyframe insertion in the fast spin
+    (tests/test_loop_e2e.py:22-28)."""
+    import dataclasses
+
+    from eao_fusion_tpu_torch.config import tum_fr3_config
+    base = tum_fr3_config(use_objects=False)
+    if not (base.use_loop_closing and base.use_planes
+            and base.loop.async_gba):
+        raise AssertionError("the default configuration has loop closing, "
+                             "planes or the asynchronous GBA off")
+    return base.replace(camera=dataclasses.replace(base.camera,
+                                                   th_depth=70.0))
+
+
+@functools.lru_cache(maxsize=None)
+def _spin(camera):
+    from eao_fusion_tpu_torch.io import synthetic
+    t0 = time.perf_counter()
+    seq = synthetic.generate_sequence(n_frames=LOOP_FRAMES, seed=LOOP_SEED,
+                                      style="spin15", texture="aperiodic",
+                                      camera=camera)
+    log(f"rendered {LOOP_FRAMES} frames of the seed-{LOOP_SEED} spin15 "
+        f"sequence in {time.perf_counter() - t0:.1f} s (host)")
+    return seq
+
+
+def time_loop_steps(lc):
+    """Time the loop closer's steps on the host clock, the step's stream
+    synchronized before and after (the GBA stages on the GBA thread's
+    stream), by wrapping them on this instance: returns the dict of step
+    -> [ms] that the wrappers fill."""
+    import torch
+    out = {}
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def run(*a, **k):
+            torch.cuda.current_stream().synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.current_stream().synchronize()
+            out.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+            return r
+        return run
+
+    for n in ("compute_sim3", "correct", "_fuse_loop_points",
+              "_fuse_loop_planes", "_essential_graph", "_gba_stage"):
+        setattr(lc, n, timed(n, getattr(lc, n)))
+    return out
+
+
+def phase_loop():
+    """Loop closing at full width on the 144-frame spin: the bounds of
+    tests/test_loop_e2e.py (<= 4 lost frames, >= 1 loop closed, the
+    corrected ATE within 0.5 cm of the raw one and < 10 cm on frames 3 on,
+    plane normals finite and of unit length within 1e-3), a GBA merged
+    after a blocking poll, and the launch counts (K1 twice per tracked
+    frame plus the relocalization solves, K4 as often as K2)."""
+    from eao_fusion_tpu_torch.io import tum
+    cfg = _loop_cfg()
+    seq = _spin(cfg.camera)
+    steps = {}
+    s, summary, counts = run_system(
+        cfg, seq, "loop closing",
+        on_system=lambda s: steps.update(
+            timed=time_loop_steps(s.loop_closer)))
+    steps = steps["timed"]
+    lc = s.loop_closer
+    merges_before = s.n_gba_merges
+    t = time.perf_counter()
+    s._poll_gba(blocking=True)
+    wait_ms = (time.perf_counter() - t) * 1e3
+
+    gt = seq.gt_tcw()
+    raw = tum.evaluate_ate_rpe(s.trajectory_tcw()[3:], gt[3:]).ate_rmse
+    corr = tum.evaluate_ate_rpe(s.trajectory_tcw(corrected=True)[3:],
+                                gt[3:]).ate_rmse
+    n_lost = sum(1 for d in s.diags[2:] if d["n_inliers"] < 20)
+    pl = s.map.pl_coeff[s.map.pl_valid].cpu().numpy()
+    norm_err = (float(np.abs(np.linalg.norm(pl[:, :3], axis=1) - 1).max())
+                if len(pl) else 0.0)
+
+    def ms(name):
+        v = steps.get(name, [])
+        return [round(x, 2) for x in v]
+
+    st = lc.stats
+    log("loop closing: " + json.dumps({
+        "lost": n_lost, "keyframes": s.n_keyframes,
+        "loops_closed": s.n_loops_closed,
+        "gba_merges_during_run": merges_before,
+        "gba_merges": s.n_gba_merges,
+        "gba_aborts": st.get("n_gba_aborts", 0),
+        "relocalizations": s.n_relocalizations,
+        "raw_ate_cm": raw * 100, "corrected_ate_cm": corr * 100,
+        "map_planes": len(pl), "plane_norm_err": norm_err,
+        "detect_ms_mean": st.get("t_detect", 0.0) / max(
+            st.get("n_detect", 0), 1) * 1e3,
+        "detect_calls": st.get("n_detect", 0),
+        "sim3_ms": ms("compute_sim3"), "correct_ms": ms("correct"),
+        "fuse_points_ms": ms("_fuse_loop_points"),
+        "fuse_planes_ms": ms("_fuse_loop_planes"),
+        "essential_graph_ms": ms("_essential_graph"),
+        "gba_stage_ms": ms("_gba_stage"),
+        "gba_whole_ms_mean": st.get("t_gba", 0.0) / max(
+            st.get("n_gba", 0), 1) * 1e3,
+        "gba_runs": st.get("n_gba", 0),
+        "blocking_poll_wait_ms": wait_ms,
+        "median_tracking_frame_ms_gba_inflight":
+            summary["median_tracking_frame_ms_gba_inflight"],
+        "tracking_frames_gba_inflight":
+            summary["tracking_frames_gba_inflight"],
+        "median_tracking_frame_ms_no_gba":
+            summary["median_tracking_frame_ms_no_gba"]}))
+    _check_tracking(summary, counts, ate_cm=10.0)
+    if n_lost > 4:
+        raise AssertionError(f"{n_lost} lost frames (<= 4)")
+    if s.n_loops_closed < 1:
+        raise AssertionError(f"no loop closed over {s.n_keyframes} "
+                             f"keyframes")
+    if s.n_gba_merges < 1:
+        raise AssertionError("no GBA was merged")
+    if not (corr <= raw + 0.005 and corr < 0.10):
+        raise AssertionError(f"corrected ATE {corr * 100:.2f} cm against "
+                             f"raw {raw * 100:.2f} cm")
+    if not (np.isfinite(pl).all() and norm_err < 1e-3):
+        raise AssertionError("a map plane is not finite or not unit")
+    if lc.gba_inflight():
+        raise AssertionError("a GBA is still in flight")
+    return summary
+
+
+def _pose_err(pose, tcw):
+    """(translation m, rotation rad) of pose against the true Tcw."""
+    import torch
+    from eao_fusion_tpu_torch.ops import lie
+    d = lie.se3_log(lie.se3_compose(
+        lie.se3_inverse(torch.as_tensor(np.asarray(pose, np.float32))),
+        torch.as_tensor(np.asarray(tcw, np.float32)))).numpy()
+    return float(np.linalg.norm(d[3:])), float(np.linalg.norm(d[:3]))
+
+
+def _blackout(s, shape, t0):
+    """Three frames of noise without depth: tracking must be lost."""
+    r = np.random.default_rng(0)
+    for k in range(3):
+        noise = r.uniform(0, 1, shape).astype(np.float32)
+        s.process_frame(noise, np.zeros(shape, np.float32), t0 + 0.03 * k)
+
+
+def phase_relocalization():
+    """Relocalization and localization-only mode at full width, the
+    automatic reset off (tests/test_reloc_e2e.py:14-48,
+    tests/test_tracking_e2e.py:90-119): on the 20-frame arc, 12 frames, a
+    blackout, then frame 8 must come back within 5 cm and 0.05 rad and
+    frames 9-11 track with > 80 inliers; then in localization-only mode
+    frames 12-19 must leave every map tensor bit-identical, insert no
+    keyframe and track within 3 cm with >= 30 inliers. On the arc the
+    tracker's own reference-keyframe search recovers frame 8 (as in the
+    JAX System), so a far revisit on the spin sequence (40 frames, a
+    blackout, then frame 4, 150 degrees back) holds BoW relocalization
+    itself: >= 1 relocalization, within 5 cm and 0.05 rad."""
+    import dataclasses
+
+    import torch
+    from eao_fusion_tpu_torch import kernels
+    from eao_fusion_tpu_torch.config import tum_fr3_config
+    from eao_fusion_tpu_torch.pipeline.system import System
+    base = tum_fr3_config(use_objects=False)
+    cfg = base.replace(tracking=dataclasses.replace(
+        base.tracking, reset_if_lost_below_kfs=0))
+    seq = _arc(N_FRAMES, cfg)
+    fr = seq.frames
+    shape = fr[0].gray.shape
+
+    s = System(cfg)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for f in fr[:12]:
+        s.process_frame(f.gray, f.depth, f.timestamp)
+    if int(s.track.status) != 1:
+        raise AssertionError("not tracking after 12 frames")
+    _blackout(s, shape, 0.5)
+    if int(s.track.status) == 1:
+        raise AssertionError("tracking survived the blackout")
+    t = time.perf_counter()
+    pose = s.process_frame(fr[8].gray, fr[8].depth, fr[8].timestamp + 1.0)
+    torch.cuda.synchronize()
+    rec_ms = (time.perf_counter() - t) * 1e3
+    dt, dr = _pose_err(pose, fr[8].tcw)
+    inl = []
+    for f in fr[9:12]:
+        s.process_frame(f.gray, f.depth, f.timestamp + 1.0)
+        inl.append(s.diags[-1]["n_inliers"])
+    log(f"relocalization (arc): frame 8 after the blackout {dt * 100:.2f} "
+        f"cm, {dr:.4f} rad (< 5 cm, < 0.05 rad) in {rec_ms:.1f} ms; "
+        f"relocalizations {s.n_relocalizations}; frames 9-11 inliers {inl} "
+        f"(> 80)")
+    if not (dt < 0.05 and dr < 0.05):
+        raise AssertionError("frame 8 was not recovered")
+    if not all(n > 80 for n in inl):
+        raise AssertionError("tracking did not resume after the recovery")
+
+    # localization-only over the rest of the arc
+    before = {k: v.clone() if isinstance(v, torch.Tensor) else v
+              for k, v in s.map._asdict().items()}
+    n_kf = s.n_keyframes
+    s.activate_localization_mode()
+    errs, inl = [], []
+    for f in fr[12:]:
+        pose = s.process_frame(f.gray, f.depth, f.timestamp + 1.0)
+        errs.append(_pose_err(pose, f.tcw)[0])
+        inl.append(s.diags[-1]["n_inliers"])
+    s.deactivate_localization_mode()
+    changed = [k for k, v in s.map._asdict().items()
+               if not (torch.equal(v, before[k])
+                       if isinstance(v, torch.Tensor) else v == before[k])]
+    counts = dict(kernels.launches)
+    log(f"localization-only: frames 12-19 position error cm "
+        f"{[round(e * 100, 2) for e in errs]} (< 3), inliers {inl} (>= 30); "
+        f"keyframes {n_kf} -> {s.n_keyframes}; map fields changed: "
+        f"{changed}; launches {json.dumps(counts)}")
+    if changed or s.n_keyframes != n_kf:
+        raise AssertionError("localization-only mode changed the map")
+    if not (max(errs) < 0.03 and min(inl) >= 30):
+        raise AssertionError("localization-only tracking is off")
+    tracked = len(s.diags)
+    want = 2 * tracked + s.reloc_stats.get("pose_solves", 0)
+    if counts["pose_opt"] != want:
+        raise AssertionError(f"K1 launched {counts['pose_opt']} times, "
+                             f"{want} expected")
+
+    # the far revisit: only BoW relocalization can recover it
+    lcfg = _loop_cfg()
+    lcfg = lcfg.replace(tracking=dataclasses.replace(
+        lcfg.tracking, reset_if_lost_below_kfs=0))
+    spin = _spin(lcfg.camera).frames
+    s = System(lcfg)
+    for f in spin[:40]:
+        s.process_frame(f.gray, f.depth, f.timestamp)
+    _blackout(s, shape, 10.0)
+    t = time.perf_counter()
+    pose = s.process_frame(spin[4].gray, spin[4].depth,
+                           spin[4].timestamp + 20.0)
+    torch.cuda.synchronize()
+    rec_ms = (time.perf_counter() - t) * 1e3
+    dt, dr = _pose_err(pose, spin[4].tcw)
+    log(f"relocalization (far revisit): frame 4 after 40 frames and a "
+        f"blackout {dt * 100:.2f} cm, {dr:.4f} rad (< 5 cm, < 0.05 rad) in "
+        f"{rec_ms:.1f} ms; relocalizations {s.n_relocalizations} (>= 1), "
+        f"pose solves {s.reloc_stats.get('pose_solves', 0)}")
+    if s.n_relocalizations < 1:
+        raise AssertionError("BoW relocalization did not fire")
+    if not (dt < 0.05 and dr < 0.05):
+        raise AssertionError("the far revisit was not recovered")
+
+
 CAM = (535.4, 539.2, 320.1, 247.6, 40.0)
 
 
@@ -1249,11 +1583,13 @@ def main() -> int:
         k2, k3 = phase_edges(dev, cfg)
         k4 = phase_chol(dev)
         phase_main_path()
-        _, counts = phase_planes_path()
+        counts = phase_planes_twice()
         phase_compaction()
         obj_summary, _ = phase_objects()
         phase_detector()
         phase_online(obj_summary)
+        phase_loop()
+        phase_relocalization()
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

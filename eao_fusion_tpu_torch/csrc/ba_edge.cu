@@ -9,7 +9,7 @@
 //                        r[3], the Huber weight, the camera Jacobian J_c[3,6]
 //                        masked by the free-camera flag and the point
 //                        Jacobian J_p[3,3]; it writes Y[18] = JcᵀWJp per
-//                        edge, channel-major [18, E], and sums
+//                        edge, channel-major [18, E], and the sums
 //                        JcᵀWJc ‖ JcᵀWr into acc_c [C, 42] per camera and
 //                        JpᵀWJp ‖ JpᵀWr into acc_p [Pw, 12] per point target.
 //   ba_edge_chi2_kernel  replaces edge_pass_chi2 (_chi2_kernel), in two
@@ -23,27 +23,35 @@
 // writes 72 B of Y: under a microsecond of either, below the latency of one
 // launch. So the design cuts launches and host work:
 //   - everything fixed during one BA call (the edge list, uv, ur, 1/σ², the
-//     free-camera flags, the point targets, the output and scratch buffers,
-//     the camera and gate scalars) is one BaEdgeArgs that the wrapper builds
-//     once; a launch passes it and three pointers;
-//   - the full pass zeroes its accumulators with one memset on the stream
-//     and does the segment sums itself, so that the 54 per-edge payload
-//     channels never reach device memory: camera sums are reduced within
-//     each warp over the lanes of equal camera (__match_any_sync and a
-//     shuffle tree; camera-ordered edges give a warp one or two cameras),
-//     added by each group's leader into the warp's own shared-memory slice
-//     (no atomics: the card's shared float atomics serialize badly under
-//     contention), then the slices are summed per block and added with one
-//     global atomicAdd per (block, present camera, channel); point sums are
-//     global atomicAdds (~4 edges a point, little contention). Their order
-//     is not fixed, as index_add_'s was not;
+//     free-camera flags, the point targets and the two segment layouts
+//     below, the output and scratch buffers, the camera and gate scalars)
+//     is one BaEdgeArgs that the wrapper builds once; a launch passes it and
+//     three pointers;
+//   - the segment sums are fixed-order, so that repeated calls give the same
+//     bits (the LM accept test compares costs, and a last-bit change of the
+//     Schur system used to move the iteration count between runs). The
+//     wrapper sorts the edges once per BA call, stably, by camera and by
+//     point target (two CSR layouts: the edge ids in order, and where each
+//     camera's or point's run starts). The full pass has two kinds of
+//     block in one grid:
+//       * one block per camera walks that camera's run: thread t takes the
+//         run's edges t, t + 128, ..., writes each edge's Y and adds its 27
+//         camera sums (Hcc's upper triangle ‖ JcᵀWr) in that order; the
+//         block then reduces the threads' sums by a fixed tree (warp
+//         shuffles, then the warps in order) and writes the camera's row;
+//       * one thread per point walks that point's run (about 4 edges) and
+//         writes the point's row, a zero row for a point with no edge.
+//     No atomics, and no memset: every row is written once. A point's
+//     edges are recomputed by its thread (the edge math is ~650 flops;
+//     keeping the payloads in device memory between two passes would need
+//     a second launch or a grid-wide barrier);
 //   - the chi2 sum is reduced in a fixed order (warp shuffles, block
 //     partials, and the last block to finish adds the partials in block
 //     order), so repeated calls give the same bits;
 //   - each block stages the C cameras in shared memory once (quaternion ->
 //     R once per camera, not per edge), rows of 13 floats: an odd stride,
 //     so lanes reading different cameras hit different banks;
-//   - 128 threads a block: E = 8192 spreads over 64 SMs, not 32.
+//   - 128 threads a block.
 //
 // Plain C interface (ctypes). The launch functions return cudaGetLastError().
 
@@ -62,6 +70,10 @@ struct BaEdgeArgs {
   const float* obs_ur;    // [E] virtual right u, < 0 = mono
   const float* obs_is2;   // [E] 1/σ²
   const float* free_cam;  // [C] 0/1
+  const int* cam_order;   // [E] edge ids sorted (stably) by camera
+  const int* cam_start;   // [C + 1] where each camera's run starts
+  const int* pt_order;    // [E] edge ids sorted (stably) by point target
+  const int* pt_start;    // [Pw + 1] where each point's run starts
   float* acc;             // [C * 42 + Pw * 12]: acc_c, then acc_p
   float* y;               // [18, E]
   float* partials;        // [blocks] chi2 sum: one partial per block
@@ -74,9 +86,6 @@ struct BaEdgeArgs {
 
 namespace {
 
-// Against 64 and 256 threads on the phase-4 window (H100): 64 was ~0.4 µs
-// faster for the full pass in camera order and ~0.25 µs slower for the
-// chi2 sum; 256 was slower for both.
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
@@ -171,147 +180,166 @@ __device__ __forceinline__ Edge edge_math(const BaEdgeArgs& a, const float* s_ca
   return g;
 }
 
-// Where acc_c's channel ch (Hcc row-major ‖ JcᵀWr) lies among the 27 sums
-// (Hcc's upper triangle row by row ‖ JcᵀWr).
-__device__ __forceinline__ int cam_slot(int ch) {
-  if (ch >= 36) return 21 + ch - 36;
-  int i = ch / 6, j = ch - 6 * (ch / 6);
-  if (i > j) {
-    const int t = i;
-    i = j;
-    j = t;
+// The edge's weighted Jacobian pieces: J[3][9] = [J_c (masked by the
+// free-camera flag) | J_p], the residual and the robust weight w.
+struct EdgeJac {
+  float J[3][9];
+  float res[3];
+  float w;
+};
+
+__device__ __forceinline__ EdgeJac edge_jacobian(const BaEdgeArgs& a, const Edge& g,
+                                                 const EdgeIn& in) {
+  EdgeJac o;
+  const float* R = g.cam;
+  const float w_rob = fminf(1.f, sqrtf(g.delta2 / fmaxf(g.c2, 1e-12f)));
+  o.w = in.is2 * w_rob * g.mask;
+  const float fm = R[12];
+  const float fx = a.fx, fy = a.fy, bf = a.bf, s = g.s;
+  // projection Jacobian rows (du, dv, s*dur)
+  const float dp[3][3] = {{fx * g.iz, 0.f, -fx * g.x * g.iz2},
+                          {0.f, fy * g.iz, -fy * g.y * g.iz2},
+                          {s * fx * g.iz, 0.f, s * (-fx * g.x * g.iz2 + bf * g.iz2)}};
+  // -hat(xc), on the unclamped xc
+  const float nh[3][3] = {{0.f, g.zr, -g.y}, {-g.zr, 0.f, g.x}, {g.y, -g.x, 0.f}};
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      o.J[r][i] = -(dp[r][0] * nh[0][i] + dp[r][1] * nh[1][i] + dp[r][2] * nh[2][i]) * fm;
+      o.J[r][3 + i] = -dp[r][i] * fm;
+      o.J[r][6 + i] = -(dp[r][0] * R[i] + dp[r][1] * R[3 + i] + dp[r][2] * R[6 + i]);
+    }
   }
-  return i * 6 - i * (i - 1) / 2 + j - i;
+  o.res[0] = g.r0;
+  o.res[1] = g.r1;
+  o.res[2] = g.r2;
+  return o;
 }
 
-__global__ void __launch_bounds__(kThreads)
-ba_edge_full_kernel(BaEdgeArgs a, const float* __restrict__ cam_pose,
-                    const float* __restrict__ pt_xyz, const float* __restrict__ active) {
-  extern __shared__ float smem[];
-  float* s_cam = smem;                   // [C, 13]
-  float* s_acc = s_cam + kCamRow * a.C;  // [warps, C, 27], one slice a warp
-  int* s_present = reinterpret_cast<int*>(s_acc + kWarps * kCamSums * a.C);  // [C]
-  const int E = a.E;
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  EdgeIn in;
-  int t = -1;
-  if (e < E) {
-    in = load_edge(a, pt_xyz, active, e);
-    t = __ldg(a.tgt + e);
-  }
-  stage_cameras(a, cam_pose, s_cam);
-  for (int i = threadIdx.x; i < kWarps * kCamSums * a.C; i += kThreads) s_acc[i] = 0.f;
-  for (int i = threadIdx.x; i < a.C; i += kThreads) s_present[i] = 0;
-  __syncthreads();
-
-  int cam = -1;  // past the end: a group of its own that adds nothing
-  float v[kCamSums];
-  if (e < E) {
-    const Edge g = edge_math(a, s_cam, in);
-    cam = in.c;
-    const float* R = g.cam;
-    const float w_rob = fminf(1.f, sqrtf(g.delta2 / fmaxf(g.c2, 1e-12f)));
-    const float w = in.is2 * w_rob * g.mask;
-    const float fm = R[12];
-    const float fx = a.fx, fy = a.fy, bf = a.bf, s = g.s;
-    // projection Jacobian rows (du, dv, s*dur)
-    const float dp[3][3] = {{fx * g.iz, 0.f, -fx * g.x * g.iz2},
-                            {0.f, fy * g.iz, -fy * g.y * g.iz2},
-                            {s * fx * g.iz, 0.f, s * (-fx * g.x * g.iz2 + bf * g.iz2)}};
-    // -hat(xc), on the unclamped xc
-    const float nh[3][3] = {{0.f, g.zr, -g.y}, {-g.zr, 0.f, g.x}, {g.y, -g.x, 0.f}};
-    float J[3][9];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        J[r][i] = -(dp[r][0] * nh[0][i] + dp[r][1] * nh[1][i] + dp[r][2] * nh[2][i]) * fm;
-        J[r][3 + i] = -dp[r][i] * fm;
-        J[r][6 + i] = -(dp[r][0] * R[i] + dp[r][1] * R[3 + i] + dp[r][2] * R[6 + i]);
-      }
-    }
-    const float res[3] = {g.r0, g.r1, g.r2};
-#define GRAM(p, q) (w * (J[0][p] * J[0][q] + J[1][p] * J[1][q] + J[2][p] * J[2][q]))
-#define GRHS(p) (w * (J[0][p] * res[0] + J[1][p] * res[1] + J[2][p] * res[2]))
-    // Y = JcᵀWJp, per edge
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) a.y[(i * 3 + j) * E + e] = GRAM(i, 6 + j);
-    }
-    // point sums: straight into acc_p, unless the edge has no point target
-    if (t >= 0 && t < a.Pw) {
-      float* ap = a.acc + kAccC * a.C + kAccP * t;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-#pragma unroll
-        for (int j = i; j < 3; ++j) {
-          const float h = GRAM(6 + i, 6 + j);
-          atomicAdd(ap + i * 3 + j, h);
-          if (j != i) atomicAdd(ap + j * 3 + i, h);
-        }
-        atomicAdd(ap + 9 + i, GRHS(6 + i));
-      }
-    }
-    int k = 0;
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-#pragma unroll
-      for (int j = i; j < 6; ++j) v[k++] = GRAM(i, j);
-    }
-#pragma unroll
-    for (int i = 0; i < 6; ++i) v[21 + i] = GRHS(i);
-#undef GRAM
-#undef GRHS
-  } else {
-#pragma unroll
-    for (int k = 0; k < kCamSums; ++k) v[k] = 0.f;
-  }
-
-  // Camera sums within the warp, over the lanes of equal camera (wherever
-  // they lie in the warp): a tree over each group's lanes, log2(group
-  // size) steps, leaves the sum in the group's lowest lane (the leader).
-  // A lane drops out of the others' `peers` once its value was taken.
-  const unsigned group = __match_any_sync(kFull, cam);
-  unsigned peers = group & (0xfffffffeu << lane);   // the group's lanes above
-  unsigned rank = __popc(group & ((1u << lane) - 1u));
-  while (__any_sync(kFull, peers)) {
-    const int next = __ffs(peers);                   // 1 + the next live lane
-#pragma unroll
-    for (int k = 0; k < kCamSums; ++k) {
-      const float o = __shfl_sync(kFull, v[k], next - 1);
-      if (next) v[k] += o;
-    }
-    peers &= ~__ballot_sync(kFull, rank & 1u);
-    rank >>= 1;
-  }
-  // One leader per camera in a warp, one slice per warp: each (warp,
-  // camera) row is written once, by a plain store.
-  if (lane == __ffs(group) - 1 && cam >= 0) {
-    s_present[cam] = 1;
-    float* sw = s_acc + (warp * a.C + cam) * kCamSums;
-#pragma unroll
-    for (int k = 0; k < kCamSums; ++k) sw[k] = v[k];
-  }
-  __syncthreads();
-  // the warps' slices in warp order, then one global atomicAdd per (block,
-  // present camera, channel)
-  for (int i = threadIdx.x; i < kAccC * a.C; i += kThreads) {
-    const int c = i / kAccC;
-    if (!s_present[c]) continue;
-    const float* sc = s_acc + c * kCamSums + cam_slot(i - c * kAccC);
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += sc[w * a.C * kCamSums];
-    atomicAdd(a.acc + i, sum);
-  }
-}
+#define GRAM(p, q) \
+  (j.w * (j.J[0][p] * j.J[0][q] + j.J[1][p] * j.J[1][q] + j.J[2][p] * j.J[2][q]))
+#define GRHS(p) \
+  (j.w * (j.J[0][p] * j.res[0] + j.J[1][p] * j.res[1] + j.J[2][p] * j.res[2]))
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(kFull, x, off);
   return x;
+}
+
+// One camera's row: the block walks the camera's run of edges in layout
+// order, writes their Y, and sums the 27 camera channels by a fixed tree.
+__device__ __forceinline__ void camera_row(const BaEdgeArgs& a, const float* s_cam,
+                                           float* s_red, const float* __restrict__ pt_xyz,
+                                           const float* __restrict__ active, int c) {
+  const int E = a.E;
+  const int k0 = __ldg(a.cam_start + c), k1 = __ldg(a.cam_start + c + 1);
+  float v[kCamSums];
+#pragma unroll
+  for (int k = 0; k < kCamSums; ++k) v[k] = 0.f;
+  for (int k = k0 + threadIdx.x; k < k1; k += kThreads) {
+    const int e = __ldg(a.cam_order + k);
+    const EdgeIn in = load_edge(a, pt_xyz, active, e);
+    const Edge g = edge_math(a, s_cam, in);
+    const EdgeJac j = edge_jacobian(a, g, in);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) a.y[(i * 3 + q) * E + e] = GRAM(i, 6 + q);
+    }
+    int n = 0;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int q = i; q < 6; ++q) v[n++] += GRAM(i, q);
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) v[21 + i] += GRHS(i);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kCamSums; ++k) {
+    const float t = warp_sum(v[k]);
+    if (lane == 0) s_red[warp * kCamSums + k] = t;
+  }
+  __syncthreads();
+  // thread i < 42 writes channel i of the row (Hcc row-major ‖ JcᵀWr),
+  // the warps' sums added in warp order
+  if (threadIdx.x < kAccC) {
+    const int ch = threadIdx.x;
+    int slot;
+    if (ch >= 36) {
+      slot = 21 + ch - 36;
+    } else {
+      int i = ch / 6, q = ch - 6 * (ch / 6);
+      if (i > q) {
+        const int t = i;
+        i = q;
+        q = t;
+      }
+      slot = i * 6 - i * (i - 1) / 2 + q - i;
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += s_red[w * kCamSums + slot];
+    a.acc[kAccC * c + ch] = sum;
+  }
+}
+
+// One point's row: the thread walks the point's run of edges in layout order.
+__device__ __forceinline__ void point_row(const BaEdgeArgs& a, const float* s_cam,
+                                          const float* __restrict__ pt_xyz,
+                                          const float* __restrict__ active, int p) {
+  const int k0 = __ldg(a.pt_start + p), k1 = __ldg(a.pt_start + p + 1);
+  float h[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // upper 6 ‖ rhs 3
+  for (int k = k0; k < k1; ++k) {
+    const int e = __ldg(a.pt_order + k);
+    const EdgeIn in = load_edge(a, pt_xyz, active, e);
+    const Edge g = edge_math(a, s_cam, in);
+    const EdgeJac j = edge_jacobian(a, g, in);
+    int n = 0;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int q = i; q < 3; ++q) h[n++] += GRAM(6 + i, 6 + q);
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) h[6 + i] += GRHS(6 + i);
+  }
+  float* ap = a.acc + kAccC * a.C + kAccP * p;
+  ap[0] = h[0];
+  ap[1] = h[1];
+  ap[2] = h[2];
+  ap[3] = h[1];
+  ap[4] = h[3];
+  ap[5] = h[4];
+  ap[6] = h[2];
+  ap[7] = h[4];
+  ap[8] = h[5];
+  ap[9] = h[6];
+  ap[10] = h[7];
+  ap[11] = h[8];
+}
+
+#undef GRAM
+#undef GRHS
+
+// Blocks [0, C) are camera blocks, the rest point blocks of 128 points.
+__global__ void __launch_bounds__(kThreads)
+ba_edge_full_kernel(BaEdgeArgs a, const float* __restrict__ cam_pose,
+                    const float* __restrict__ pt_xyz, const float* __restrict__ active) {
+  extern __shared__ float smem[];
+  float* s_cam = smem;                    // [C, 13]
+  __shared__ float s_red[kWarps * kCamSums];
+  stage_cameras(a, cam_pose, s_cam);
+  __syncthreads();
+  if (static_cast<int>(blockIdx.x) < a.C) {
+    camera_row(a, s_cam, s_red, pt_xyz, active, blockIdx.x);
+  } else {
+    const int p = (blockIdx.x - a.C) * kThreads + threadIdx.x;
+    if (p < a.Pw) point_row(a, s_cam, pt_xyz, active, p);
+  }
 }
 
 // Sum of the block's values in a fixed order, valid in thread 0.
@@ -377,10 +405,7 @@ ba_edge_chi2_kernel(BaEdgeArgs a, const float* __restrict__ cam_pose,
   }
 }
 
-size_t full_smem(int C) {
-  return sizeof(float) * (kCamRow + kWarps * kCamSums) * C + sizeof(int) * C;
-}
-size_t chi2_smem(int C) { return sizeof(float) * kCamRow * C; }
+size_t cam_smem(int C) { return sizeof(float) * kCamRow * C; }
 
 // Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
 template <typename K>
@@ -396,22 +421,22 @@ extern "C" int ba_edge_args_size() { return static_cast<int>(sizeof(BaEdgeArgs))
 
 extern "C" int ba_edge_threads() { return kThreads; }
 
-// Largest C whose cameras and camera sums fit one block's shared memory.
+// Largest C whose staged cameras fit one block's shared memory beside the
+// static reduction buffers.
 extern "C" int ba_edge_max_cameras() {
-  return static_cast<int>((227 * 1024) / full_smem(1));
+  return static_cast<int>((200 * 1024) / cam_smem(1));
 }
 
-// K2: zero acc, then Y and the segment sums. One memset and one kernel.
+// K2: Y and the fixed-order segment sums, one kernel (C camera blocks and
+// ceil(Pw / 128) point blocks); every output row is written, so nothing is
+// zeroed first.
 extern "C" int ba_edge_full_launch(const BaEdgeArgs* a, const float* cam_pose,
                                    const float* pt_xyz, const float* active, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t n_acc = static_cast<size_t>(a->C) * kAccC + static_cast<size_t>(a->Pw) * kAccP;
-  cudaError_t err = cudaMemsetAsync(a->acc, 0, n_acc * sizeof(float), st);
-  if (err != cudaSuccess || a->E <= 0) return static_cast<int>(err);
-  const size_t smem = full_smem(a->C);
-  err = allow_smem(ba_edge_full_kernel, smem);
+  const size_t smem = cam_smem(a->C);
+  cudaError_t err = allow_smem(ba_edge_full_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (a->E + kThreads - 1) / kThreads;
+  const int blocks = a->C + (a->Pw + kThreads - 1) / kThreads;
   ba_edge_full_kernel<<<blocks, kThreads, smem, st>>>(*a, cam_pose, pt_xyz, active);
   return static_cast<int>(cudaGetLastError());
 }
@@ -425,7 +450,7 @@ extern "C" int ba_edge_chi2_launch(const BaEdgeArgs* a, const float* cam_pose,
   if (a->E <= 0) {
     return out_sum ? static_cast<int>(cudaMemsetAsync(out_sum, 0, sizeof(float), st)) : 0;
   }
-  const size_t smem = chi2_smem(a->C);
+  const size_t smem = cam_smem(a->C);
   const int blocks = (a->E + kThreads - 1) / kThreads;
   cudaError_t err;
   if (out_sum) {

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from eao_fusion_tpu_torch.mapping.map_state import MapState
+from eao_fusion_tpu_torch.ops.topk import top_k_stable
 
 
 def observation_indicator(m: MapState) -> torch.Tensor:
@@ -40,3 +41,16 @@ def points_of_keyframes(Z: torch.Tensor, kf_mask: torch.Tensor
     """bool [P]: points observed by any keyframe in kf_mask."""
     return (Z.T @ kf_mask.float()) > 0.5
 
+
+def top_covisible(covis: torch.Tensor, kf_slot: int, kf_valid: torch.Tensor,
+                  k_top: int, min_shared: int = 15) -> torch.Tensor:
+    """bool [K] mask of the best-connected keyframes of `kf_slot`: those
+    sharing at least the k_top-th largest count and at least `min_shared`
+    points (`KeyFrame::GetBestCovisibilityKeyFrames`,
+    `src/KeyFrame.cc:210`)."""
+    row = covis[kf_slot].clone()
+    row[kf_slot] = 0.0
+    row = torch.where(kf_valid, row, 0.0)
+    k_top = min(k_top, row.shape[0])
+    thresh = top_k_stable(row, k_top)[0][-1]
+    return (row >= torch.clamp(thresh, min=float(min_shared))) & kf_valid

@@ -1,6 +1,6 @@
 """Plane landmarks: frame-to-map association, map updates and the pose
-factors' inputs (port of `eao_fusion_tpu/mapping/plane_map.py`;
-`transform_planes` comes with the loop-closing slice).
+factors' inputs, and the move of world planes by a loop correction
+(port of `eao_fusion_tpu/mapping/plane_map.py`).
 
 Map planes are rows of the MapState plane table: world Hessian coeffs and
 a block of boundary points. Association is batched over (frame planes x
@@ -32,6 +32,20 @@ def planes_to_world(coeffs_c: torch.Tensor, tcw: torch.Tensor
 def boundary_to_world(boundary_c: torch.Tensor, tcw: torch.Tensor
                       ) -> torch.Tensor:
     return lie.se3_apply(lie.se3_inverse(tcw), boundary_c)
+
+
+def transform_planes(coeff: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """Move world planes [.., 4] by the world-to-world SE3 map x' = T(x):
+    n' = R n, d' = d − n'·t. T is one pose [7], or one per plane [.., 7]
+    (the JAX function under vmap)."""
+    R = lie.quat_to_rotmat(T[..., :4])
+    if T.dim() == 1:
+        n = coeff[..., :3] @ R.T
+        d = coeff[..., 3] - n @ T[4:7]
+    else:
+        n = torch.einsum("...ij,...j->...i", R, coeff[..., :3])
+        d = coeff[..., 3] - torch.sum(n * T[..., 4:7], dim=-1)
+    return torch.cat([n, d[..., None]], dim=-1)
 
 
 def associate_planes(m: MapState, fp: FramePlanes, tcw: torch.Tensor, *,

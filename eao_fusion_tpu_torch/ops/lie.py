@@ -1,10 +1,12 @@
-"""SO(3) / SE(3) operations on batched tensors (port of
-`eao_fusion_tpu/ops/lie.py:30-285`, Sim(3) excluded).
+"""SO(3) / SE(3) / Sim(3) operations on batched tensors (port of
+`eao_fusion_tpu/ops/lie.py:30-285`).
 
 Conventions are the JAX package's: quaternions ``[w, x, y, z]``; an SE(3)
 pose is ``[qw qx qy qz tx ty tz]`` acting as ``x' = R x + t`` (Tcw); se3
-tangents are ``[omega(3), v(3)]`` with the full exponential; every GN
-solver uses the left retraction ``exp(d) * T``. All functions broadcast
+tangents are ``[omega(3), v(3)]`` with the full exponential; a Sim(3)
+element is ``[q(4), t(3), s]`` acting as ``x' = s R x + t``, its tangent
+``[omega(3), v(3), sigma]``; every GN solver uses the left retraction
+``exp(d) * T``. All functions broadcast
 over leading axes and keep the input's device and dtype (f32).
 """
 
@@ -192,6 +194,70 @@ def se3_log(p: torch.Tensor) -> torch.Tensor:
 def se3_retract(p: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
     """Left-multiplicative retraction used by all GN solvers: exp(tau) * p."""
     return se3_compose(se3_exp(tau), p)
+
+
+# ---------------------------------------------------------------------- sim3
+
+def sim3_identity(shape=(), device=None) -> torch.Tensor:
+    p = torch.zeros(tuple(shape) + (8,), dtype=torch.float32, device=device)
+    p[..., 0] = 1.0
+    p[..., 7] = 1.0
+    return p
+
+
+def sim3_from_se3(p: torch.Tensor, s=None) -> torch.Tensor:
+    if s is None:
+        s = torch.ones(p.shape[:-1] + (1,), dtype=p.dtype, device=p.device)
+    else:
+        s = torch.as_tensor(s, dtype=p.dtype, device=p.device).expand(
+            p.shape[:-1] + (1,))
+    return torch.cat([p, s], dim=-1)
+
+
+def sim3_to_se3(g: torch.Tensor) -> torch.Tensor:
+    """Drop the scale, translation rescaled t / s (`src/LoopClosing.cc:
+    510-515`)."""
+    return torch.cat([g[..., :4], g[..., 4:7] / g[..., 7:8]], dim=-1)
+
+
+def sim3_apply(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return g[..., 7:8] * quat_rotate(g[..., :4], x) + g[..., 4:7]
+
+
+def sim3_compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    q = quat_normalize(quat_mul(a[..., :4], b[..., :4]))
+    t = a[..., 7:8] * quat_rotate(a[..., :4], b[..., 4:7]) + a[..., 4:7]
+    s = a[..., 7:8] * b[..., 7:8]
+    return torch.cat([q, t, s], dim=-1)
+
+
+def sim3_inverse(g: torch.Tensor) -> torch.Tensor:
+    qi = quat_conj(g[..., :4])
+    si = 1.0 / torch.clamp(g[..., 7:8], min=_EPS)
+    ti = -si * quat_rotate(qi, g[..., 4:7])
+    return torch.cat([qi, ti, si], dim=-1)
+
+
+def sim3_exp(tau: torch.Tensor) -> torch.Tensor:
+    """exp for the sim3 tangent [omega(3), v(3), sigma]: R = exp(w),
+    s = exp(sigma), t = Jl(w) v (the JAX package's simplified retraction,
+    exact at sigma = 0)."""
+    w, v, sig = tau[..., :3], tau[..., 3:6], tau[..., 6:7]
+    q = so3_exp_quat(w)
+    t = (so3_left_jacobian(w) @ v[..., :, None])[..., 0]
+    return torch.cat([q, t, torch.exp(sig)], dim=-1)
+
+
+def sim3_log(g: torch.Tensor) -> torch.Tensor:
+    w = so3_log(g[..., :4])
+    Jl = so3_left_jacobian(w)
+    v = torch.linalg.solve(Jl, g[..., 4:7][..., :, None])[..., 0]
+    sig = torch.log(torch.clamp(g[..., 7:8], min=_EPS))
+    return torch.cat([w, v, sig], dim=-1)
+
+
+def sim3_retract(g: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    return sim3_compose(sim3_exp(tau), g)
 
 
 # ------------------------------------------------------------------- cameras

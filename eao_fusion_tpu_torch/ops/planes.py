@@ -11,9 +11,10 @@ planes, each with a strided sample of supporting points as its boundary.
 What the JAX function does with 0/1 indicator matmuls only for the TPU's
 sake is written as what it computes: the window sums are a reshape-sum,
 the pointer jump is the integer gather `lbl[lbl]` (exact), and the
-component refit is an `index_add_` of the [G, 13] moments. The moments are
-sums of z² ≈ 16 m², and `cov = pp/n − μμᵀ` cancels, so every sum stays in
-float32 (the package keeps TF32 off).
+component refit sums the [G, 13] moments by label in window order
+(`ops/scatter.index_sum`: the same bits in every run, on the card too).
+The moments are sums of z² ≈ 16 m², and `cov = pp/n − μμᵀ` cancels, so
+every sum stays in float32 (the package keeps TF32 off).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from eao_fusion_tpu_torch.config import CameraConfig, PlaneConfig
 from eao_fusion_tpu_torch.ops import lie
+from eao_fusion_tpu_torch.ops.scatter import index_sum
 from eao_fusion_tpu_torch.ops.topk import top_k_stable
 from eao_fusion_tpu_torch.types import FramePlanes
 
@@ -177,8 +179,8 @@ def segment_planes(depth: torch.Tensor, *, cam: CameraConfig,
 
     # ---- per-component refit from summed moments ------------------------
     mom = torch.cat([n[:, None], s, pp.reshape(G, 9)], dim=1)     # [G, 13]
-    seg = torch.zeros((G + 1, 13), dtype=torch.float32,
-                      device=dev).index_add_(0, labels, mom)[:G]
+    seg = index_sum(torch.zeros((G + 1, 13), dtype=torch.float32,
+                                device=dev), labels, mom)[:G]
     seg_n = seg[:, 0]
     seg_normal, seg_d, _, _ = _fit_from_moments(
         seg_n.to(torch.int32), seg[:, 1:4], seg[:, 4:13].reshape(G, 3, 3))

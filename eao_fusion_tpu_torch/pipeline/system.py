@@ -1,15 +1,17 @@
-"""System facade for RGBD tracking with plane and object landmarks and
-keyframe-rate local mapping (port of the RGBD subset of
+"""System facade for RGBD SLAM with plane and object landmarks, local
+mapping, loop closing and relocalization (port of the RGBD subset of
 `eao_fusion_tpu/pipeline/system.py`).
 
-The host sequences the per-frame plane segmentation, `track_frame` and the
-EAO object lane (frame objects, ensemble association, object update), the
-keyframe-rate `insert_keyframe_rgbd`, plane-map update,
-`local_mapping_step` and object merge, and the episodic point and keyframe
-compaction. Boxes come from the caller (offline box files) or, with
-`semantic_online`, from the port's own YOLOX lane. Loop closing and
-monocular and stereo input come with later slices of the port: a config or
-a call that needs them raises NotImplementedError.
+The host sequences the per-frame plane segmentation, `track_frame`,
+relocalization on loss and the EAO object lane (frame objects, ensemble
+association, object update), the keyframe-rate `insert_keyframe_rgbd`,
+plane-map update, `local_mapping_step`, object merge and loop closing
+(detection, Sim3, correction, the global BA on a side thread, merged when
+it finishes), and the episodic point and keyframe compaction. Boxes come
+from the caller (offline box files) or, with `semantic_online`, from the
+port's own YOLOX lane. Localization-only mode tracks against a frozen map.
+Monocular and stereo input come with a later slice of the port: a config
+or a call that needs them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,14 +26,16 @@ from eao_fusion_tpu_torch import DeviceLike, resolve_device
 from eao_fusion_tpu_torch.config import COCO_CLASS_WHITELIST, SystemConfig
 from eao_fusion_tpu_torch.frontend import extractor, yolox
 from eao_fusion_tpu_torch.mapping import map_state as ms
-from eao_fusion_tpu_torch.mapping import plane_map
+from eao_fusion_tpu_torch.mapping import plane_map, vocabulary
 from eao_fusion_tpu_torch.objects import association
 from eao_fusion_tpu_torch.objects import merge as obj_merge
 from eao_fusion_tpu_torch.objects import object_map as om
 from eao_fusion_tpu_torch.objects import update as obj_update
 from eao_fusion_tpu_torch.ops import lie
 from eao_fusion_tpu_torch.ops import planes as plane_ops
-from eao_fusion_tpu_torch.pipeline import local_mapping, tracking
+from eao_fusion_tpu_torch.pipeline import (local_mapping, relocalization,
+                                           tracking)
+from eao_fusion_tpu_torch.pipeline.loop_closing import LoopCloser
 from eao_fusion_tpu_torch.types import FrameFeatures, FramePlanes
 
 
@@ -56,13 +60,10 @@ def insert_keyframe_rgbd(m: ms.MapState, feats: FrameFeatures,
 
 
 def _check_slice(cfg: SystemConfig) -> None:
-    unported = [name for name, on in (
-        ("use_loop_closing", cfg.use_loop_closing),
-        ("sensor != 'rgbd'", cfg.sensor != "rgbd")) if on]
-    if unported:
+    if cfg.sensor != "rgbd":
         raise NotImplementedError(
-            "not ported yet (RGBD tracking, planes, objects, the detector "
-            "lane and local mapping only): " + ", ".join(unported))
+            f"sensor {cfg.sensor!r}: not ported yet (RGBD only; monocular "
+            f"and stereo come with a later slice)")
 
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -124,11 +125,34 @@ class System:
         self._last_fo: Optional[om.FrameObjects] = None
         # the object lane's randoms (isolation-forest draws), in place of
         # the JAX System's PRNGKey(7)
+        # the randoms of the object lane (isolation-forest draws), loop
+        # closing and relocalization (RANSAC draws), in place of the JAX
+        # System's PRNGKey(7)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(7)
         self.n_obj_keyframes = 0    # keyframes inserted for a new object
         self.detector = (make_detector(self.device)
                          if self.cfg.semantic_online else None)
+        self.localization_only = False
+        self.n_loops_closed = 0
+        self.n_relocalizations = 0
+        self.n_gba_merges = 0
+        self.reloc_stats: dict = {}   # relocalization's pose solves
+        # the vocabulary is the shipped file; a missing one raises (the JAX
+        # System falls back to a random codebook)
+        self.loop_closer = (LoopCloser(self.cfg, vocabulary.Vocabulary.load(
+            device=self.device), self.generator)
+            if self.cfg.use_loop_closing else None)
+
+    def activate_localization_mode(self) -> None:
+        """Track against the frozen map (`System::ActivateLocalizationMode`,
+        `src/Tracking.cc:963-1021` mbOnlyTracking): no keyframe insertion,
+        no reset, no landmark, plane or object update; the map stays
+        bit-identical. Relocalization still runs on a loss."""
+        self.localization_only = True
+
+    def deactivate_localization_mode(self) -> None:
+        self.localization_only = False
 
     def reset(self) -> None:
         """Clear the map, object and tracking state; the trajectory is kept,
@@ -140,6 +164,11 @@ class System:
         self.n_keyframes = 0
         self._traj_refs = [(-1, raw) for raw, _ in
                            zip(self.trajectory, self._traj_refs)]
+        lc = self.loop_closer
+        if lc is not None:
+            lc.abort_gba()           # its snapshot belongs to the old map
+            lc.bow = torch.zeros_like(lc.bow)
+            lc.consistent_groups = []
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -200,8 +229,22 @@ class System:
             self.frame_id += 1
             return pose.cpu().numpy()
 
-        self.map, self.track, diag = tracking.track_frame(
+        loc_only = self.localization_only
+        m_out, self.track, diag = tracking.track_frame(
             self.map, self.track, feats, self.frame_id, planes, cfg=cfg)
+        if not loc_only:
+            # localization-only keeps the map untouched (track_frame's only
+            # map writes are the found / visible counters)
+            self.map = m_out
+
+        # relocalization on tracking loss (`src/Tracking.cc:999`), before
+        # the object lane so that the lane runs once, with the recovered
+        # pose. A loss with few keyframes goes to the reset below instead
+        if (self.loop_closer is not None
+                and int(self.track.status) == tracking.STATUS_LOST
+                and (loc_only or self.n_keyframes
+                     > cfg.tracking.reset_if_lost_below_kfs)):
+            self._relocalize(feats)
 
         # ---- object lane (EAO): frame objects, ensemble association,
         # object-table update (`Tracking::TrackWithMotionModel` object
@@ -218,7 +261,8 @@ class System:
                                       np.asarray(wl))]
         fo = None
         new_obj = torch.zeros((), dtype=torch.bool, device=self.device)
-        if cfg.use_objects and boxes is not None and len(boxes):
+        if (cfg.use_objects and boxes is not None and len(boxes)
+                and not loc_only):
             fo, new_obj = self._object_lane(boxes, feats)
 
         # one device -> host read for every scalar the host gates on: the
@@ -236,7 +280,7 @@ class System:
 
         # auto-reset when lost early: with <= 5 keyframes a loss means the
         # initialization was bad
-        if (status == tracking.STATUS_LOST
+        if (status == tracking.STATUS_LOST and not loc_only
                 and self.n_keyframes <= cfg.tracking.reset_if_lost_below_kfs):
             self.n_resets += 1
             self.reset()
@@ -250,7 +294,7 @@ class System:
         # NeedNewKeyFrame returns 2 on AppearNewObject,
         # `src/Tracking.cc:2390-2462`)
         new_object = bool(new_object) and next_kf < self.map.max_kf
-        if diag_h["need_kf"] or new_object:
+        if not loc_only and (diag_h["need_kf"] or new_object):
             by_obj = new_object and not diag_h["need_kf"]
             self.n_obj_keyframes += int(by_obj)
             self.map = insert_keyframe_rgbd(
@@ -270,6 +314,23 @@ class System:
         self._record(self.track.pose, timestamp)
         self.frame_id += 1
         return self.track.pose.cpu().numpy()
+
+    def _relocalize(self, feats: FrameFeatures) -> bool:
+        """BoW retrieval, RANSAC and the pose solve against the map; on
+        success tracking resumes from the recovered pose."""
+        lc = self.loop_closer
+        pose, kp_pt = relocalization.relocalize(
+            self.map, feats, lc.bow, lc.vocab, self.generator, cfg=self.cfg,
+            stats=self.reloc_stats)
+        if pose is None:
+            return False
+        dev = self.device
+        self.track = self.track._replace(
+            pose=pose, last_pose=pose, last_feats=feats, kp_pt=kp_pt,
+            velocity=lie.se3_identity(device=dev),
+            status=tracking._i32(tracking.STATUS_OK, dev))
+        self.n_relocalizations += 1
+        return True
 
     def _object_lane(self, boxes: np.ndarray, feats: FrameFeatures):
         """Build this frame's objects, merge the last frame's into them,
@@ -307,9 +368,32 @@ class System:
         self.map = plane_map.record_kf_plane_obs(self.map, kf_slot, planes,
                                                  plane_ids)
 
+    def _poll_gba(self, blocking: bool = False) -> bool:
+        """Merge a finished asynchronous GBA into the live map (the
+        reference's post-GBA map update under mMutexGBA). The tracking pose
+        is rebased through its reference keyframe: the camera-relative
+        transform T_c,ref is invariant under map corrections."""
+        lc = self.loop_closer
+        if lc is None or lc._gba_thread is None:
+            return False
+        ref = int(self.track.ref_kf)
+        before = self.map.kf_pose[ref] if ref >= 0 else None
+        self.map, merged = lc.poll_gba(self.map, blocking=blocking)
+        if merged:
+            self.n_gba_merges += 1
+        if merged and before is not None:
+            rebase = lie.se3_compose(lie.se3_inverse(before),
+                                     self.map.kf_pose[ref])
+            self.track = self.track._replace(
+                pose=lie.se3_compose(self.track.pose, rebase),
+                last_pose=lie.se3_compose(self.track.last_pose, rebase))
+        return merged
+
     def _on_keyframe(self, slot: int) -> None:
-        """Keyframe-rate mapping: culling, fusion, local BA, stat refresh,
-        then point and keyframe compaction when their tables run low."""
+        """Keyframe-rate mapping: a finished GBA merged first; culling,
+        fusion, local BA, stat refresh, object merge; point compaction;
+        loop closing; keyframe compaction."""
+        self._poll_gba()
         if self.n_keyframes >= 3:
             self.map = local_mapping.local_mapping_step(self.map, slot,
                                                         cfg=self.cfg)
@@ -320,6 +404,16 @@ class System:
             self.objects = obj_merge.merge_and_overlap(
                 self.objects, self.map.pt_xyz, self.generator, cfg=self.cfg)
         self._maybe_compact_points()
+        if self.loop_closer is not None:
+            self.map, closed = self.loop_closer.on_keyframe(self.map, slot)
+            if closed:
+                self.n_loops_closed += 1
+                # the correction moved poses and points: tracking restarts
+                # from the corrected keyframe
+                self.track = self.track._replace(
+                    pose=self.map.kf_pose[slot],
+                    last_pose=self.map.kf_pose[slot],
+                    kp_pt=self.map.kf_pt_idx[slot])
         self._maybe_compact_keyframes()
 
     def _maybe_compact_points(self) -> bool:
@@ -333,6 +427,9 @@ class System:
         self.events.append({"frame_id": self.frame_id,
                             "event": "pt_compaction",
                             "live_pts": int(self.map.pt_valid.sum())})
+        if self.loop_closer is not None:
+            # an in-flight GBA must see the new point slots
+            self.loop_closer.note_pt_remap(remap.cpu().numpy())
         def follow(ids):
             return torch.where(ids >= 0, remap[torch.clamp(ids.long(), min=0)],
                                -1)
@@ -352,9 +449,10 @@ class System:
         keyframes (exploration), first evict the ones least tied to the
         recent window. Lifetime keyframe insertions become unbounded. The
         map's own references are remapped by `compact_keyframes`; here the
-        tracking reference and the trajectory references follow. (The JAX
-        System also drops its pending loop detection and remaps the loop
-        closer's keyframe ids; those come with the loop-closing slice.)"""
+        tracking reference, the trajectory references and the loop
+        closer's bow rows and keyframe ids follow. (The JAX System also
+        drops its pending batched loop detection, which belongs to the
+        steady chunked loop, not ported yet.)"""
         m = self.map
         if int(m.next_kf) < int(0.9 * m.max_kf):
             return False
@@ -400,6 +498,8 @@ class System:
             kp, -1)
         self.track = self.track._replace(
             ref_kf=tracking._i32(r, self.device), kp_pt=kp)
+        if self.loop_closer is not None:
+            self.loop_closer.apply_kf_remap(remap_h)
         return True
 
     def _record(self, pose: torch.Tensor, timestamp: float) -> None:
@@ -414,13 +514,24 @@ class System:
         else:
             self._traj_refs.append((-1, pose.cpu().numpy()))
 
+    def keyframe_trajectory(self):
+        """(timestamps [K], Tcw [K, 7]) of the surviving keyframes in slot
+        order (`System::SaveKeyFrameTrajectoryTUM`): every loop correction
+        and GBA included, an in-flight GBA waited for first."""
+        self._poll_gba(blocking=True)
+        sel = self.map.kf_valid
+        return (self.map.kf_timestamp[sel].cpu().numpy(),
+                self.map.kf_pose[sel].cpu().numpy())
+
     def trajectory_tcw(self, corrected: bool = False) -> np.ndarray:
         """Raw per-frame estimates, or (corrected=True) the trajectory
-        re-derived through the current keyframe poses."""
+        re-derived through the current keyframe poses (an in-flight GBA
+        is waited for and merged first)."""
         if not self.trajectory:
             return np.zeros((0, 7), np.float32)
         if not corrected:
             return np.stack(self.trajectory)
+        self._poll_gba(blocking=True)
         kf_pose = self.map.kf_pose.cpu()
         kf_valid = self.map.kf_valid.cpu().numpy()
         out = []

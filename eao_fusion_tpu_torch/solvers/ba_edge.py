@@ -145,11 +145,26 @@ def chi2_sum_plain(x: EdgeInputs, active: torch.Tensor, *, cam,
                                           chi2_stereo=chi2_stereo)[0])
 
 
+def segment_layout(keys: torch.Tensor, n: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CSR layout K2 sums by: (order [E] int32, the edge ids sorted
+    stably by key, so that equal keys keep edge order; start [n + 1] int32,
+    where key k's run begins in `order`). Keys outside [0, n) sort last and
+    belong to no run. The order depends only on the keys, so every call of
+    the kernel sums in the same order."""
+    keys = keys.long()
+    k = torch.where((keys >= 0) & (keys < n), keys, n)
+    sk, order = torch.sort(k, stable=True)
+    start = torch.searchsorted(sk, torch.arange(n + 1, device=keys.device))
+    return order.to(torch.int32), start.to(torch.int32)
+
+
 class _Args(ctypes.Structure):
     """`BaEdgeArgs` of csrc/ba_edge.cu, field for field."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "obs_cam", "obs_pt", "tgt", "obs_uv", "obs_ur", "obs_is2",
-        "free_cam", "acc", "y", "partials", "ticket")] + [
+        "free_cam", "cam_order", "cam_start", "pt_order", "pt_start",
+        "acc", "y", "partials", "ticket")] + [
         (n, ctypes.c_int) for n in ("C", "Pw", "E")] + [
         (n, ctypes.c_float) for n in (
             "fx", "fy", "cx", "cy", "bf", "chi2_mono", "chi2_stereo")]
@@ -160,9 +175,11 @@ class EdgePass:
     edge list, uv, ur, 1/σ², the free-camera flags and the point targets.
     Per LM step only the cameras, the points and the active mask change.
 
-    On CUDA tensors, binding checks and copies the fixed tensors, packs
-    their pointers and the scalars into one `BaEdgeArgs`, and allocates
-    the outputs and scratch; a call then checks its three tensors and
+    On CUDA tensors, binding checks and copies the fixed tensors, sorts
+    the edges by camera and by point target (`segment_layout`: K2 sums in
+    that fixed order, so a call gives the same bits every time), packs the
+    pointers and the scalars into one `BaEdgeArgs`, and allocates the
+    outputs and scratch; a call then checks its three tensors and
     launches. `full` and `chi2_sum` return the binding's own buffers, which
     their next call overwrites: use the result before that. `chi2_edges`
     returns fresh tensors. On CPU tensors every call runs the plain
@@ -205,6 +222,11 @@ class EdgePass:
             fixed[name] = t
         if fixed["obs_uv"].data_ptr() % 8:      # the kernel reads float2
             fixed["obs_uv"] = fixed["obs_uv"].clone()
+        # the fixed summation order: edges by camera (clamped into range, as
+        # the kernel reads them) and by point target
+        fixed["cam_order"], fixed["cam_start"] = segment_layout(
+            torch.clamp(fixed["obs_cam"], 0, C - 1), C)
+        fixed["pt_order"], fixed["pt_start"] = segment_layout(fixed["tgt"], Pw)
         blocks = -(-E // lib.ba_edge_threads())
         self._acc = torch.empty(C * 42 + Pw * 12, dtype=f32, device=dev)
         self._acc_c = self._acc[:C * 42].view(C, 42)
@@ -241,8 +263,8 @@ class EdgePass:
     def full(self, cam_pose: torch.Tensor, pt_xyz: torch.Tensor,
              active: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(acc_c [C, 42], acc_p [Pw, 12], Y [18, E]): K2, one memset and
-        one kernel."""
+        """(acc_c [C, 42], acc_p [Pw, 12], Y [18, E]): K2, one kernel,
+        summed in the bind-time order."""
         if self._lib is None:
             return edge_sums_plain(self._plain_inputs(cam_pose, pt_xyz),
                                    active, self._tgt, **self._kw)

@@ -205,6 +205,38 @@ def test_edge_pass_binding_on_cpu_matches_plain():
     assert kernels.launches == before
 
 
+@pytest.mark.parametrize("order", ["random", "camera"])
+def test_segment_layout_sums_match_plain(order):
+    """The bind-time layout K2 sums by (`segment_layout`): the edge ids in
+    a stable sort by camera and by point target, with the run starts. The
+    payloads summed run by run in that order give the plain sums (float32
+    sums in another order: 1e-5 of each channel's largest |term| sum), and
+    edges without a point target belong to no run."""
+    _, x, act, _, _, tgt0 = _sums_problem()
+    if order == "camera":
+        perm = torch.argsort(x.obs_cam.long(), stable=True)
+        x = x._replace(**{k: getattr(x, k)[perm] for k in (
+            "obs_cam", "obs_pt", "obs_uv", "obs_ur", "obs_inv_sigma2")})
+        act, tgt0 = act[perm], tgt0[perm]
+    C, Pw = x.cam_pose.shape[0], x.pt_xyz.shape[0]
+    payc, payp, _ = TE.edge_pass_full_plain(x, act, cam=CAM, **CHI2)
+    want = TE.edge_sums_plain(x, act, tgt0, cam=CAM, **CHI2)
+    for keys, n, pay, ref in ((x.obs_cam, C, payc, want[0]),
+                              (tgt0, Pw, payp, want[1])):
+        o, start = TE.segment_layout(keys, n)
+        k = keys.numpy()
+        inside = (k >= 0) & (k < n)
+        np.testing.assert_array_equal(
+            o.numpy()[:int(start[-1])],
+            np.argsort(np.where(inside, k, n), kind="stable")[:inside.sum()])
+        assert int(start[0]) == 0 and int(start[-1]) == int(inside.sum())
+        got = torch.stack([pay[:, o[start[i]:start[i + 1]].long()].sum(1)
+                           for i in range(n)])
+        scale = torch.zeros((n + 1, pay.shape[0])).index_add_(
+            0, torch.from_numpy(np.where(inside, k, n)), pay.T.abs())[:n]
+        assert ((got - ref).abs() <= 1e-5 * scale.amax(0) + 1e-30).all()
+
+
 @pytest.mark.parametrize("seed", [7, 8])
 def test_bundle_adjust_coo_matches_jax(seed):
     coo, cams_gt = _coo(seed)

@@ -1,5 +1,7 @@
-"""SO(3)/SE(3) ops of the port against the JAX package on random batches,
-small-angle branches included (atol 1e-6)."""
+"""SO(3)/SE(3)/Sim(3) ops of the port against the JAX package on random
+batches, small-angle branches included (atol 1e-6; 1e-5 where a Sim(3)
+log solves with the left Jacobian, whose float32 LU differs in the last
+bits between the two libraries)."""
 
 import numpy as np
 import pytest
@@ -83,3 +85,43 @@ def test_identity_and_roundtrip():
     np.testing.assert_allclose(ident.numpy(),
                                np.tile(T.se3_identity().numpy(), (len(p), 1)),
                                atol=1e-6)
+
+
+def _sim_tau(seed, n=64):
+    """sim3 tangents [n, 7]: the se3 batch of `_batch` and log-scales up to
+    about ±0.5."""
+    r = np.random.default_rng(seed + 100)
+    sig = r.normal(0, 0.2, (n, 1)).astype(np.float32)
+    return np.concatenate([_batch(seed, n), sig], axis=1)
+
+
+def _sims(seed):
+    return np.asarray(J.sim3_exp(jnp.asarray(_sim_tau(seed))))
+
+
+@pytest.mark.parametrize("name,make,atol", [
+    ("sim3_exp", lambda s: (_sim_tau(s),), ATOL),
+    ("sim3_log", lambda s: (_sims(s),), 1e-5),
+    ("sim3_inverse", lambda s: (_sims(s),), ATOL),
+    ("sim3_compose", lambda s: (_sims(s), _sims(s + 1)), ATOL),
+    ("sim3_retract", lambda s: (_sims(s), _sim_tau(s + 1)), ATOL),
+    ("sim3_apply", lambda s: (_sims(s), _batch(s + 1)[:, :3] * 5), 1e-5),
+    ("sim3_to_se3", lambda s: (_sims(s),), ATOL),
+    ("sim3_from_se3", lambda s: (_poses(s),), ATOL),
+])
+def test_sim3_matches_jax(name, make, atol):
+    a, b = _both(name, *make(4))
+    np.testing.assert_allclose(b, a, atol=atol)
+
+
+def test_sim3_identity_and_roundtrip():
+    g = torch.from_numpy(_sims(6))
+    ident = T.sim3_compose(g, T.sim3_inverse(g))
+    np.testing.assert_allclose(
+        ident.numpy(), np.tile(T.sim3_identity().numpy(), (len(g), 1)),
+        atol=2e-6)
+    np.testing.assert_array_equal(T.sim3_identity((2,)).numpy(),
+                                  np.asarray(J.sim3_identity((2,))))
+    tau = torch.from_numpy(_sim_tau(7))
+    np.testing.assert_allclose(T.sim3_log(T.sim3_exp(tau)).numpy(),
+                               tau.numpy(), atol=1e-5)

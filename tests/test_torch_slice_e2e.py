@@ -105,23 +105,44 @@ def test_device_defaults_to_the_card(monkeypatch):
         System(_tcfg())
 
 
-@pytest.mark.parametrize("flag", ["use_loop_closing"])
+@pytest.mark.parametrize("flag", ["sensor"])
 def test_unported_options_raise(flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        System(_tcfg(**{flag: True}), device="cpu")
+    """Only monocular and stereo input remain unported: a config with
+    another sensor than RGBD raises."""
+    for sensor in ("mono", "stereo"):
+        with pytest.raises(NotImplementedError, match=flag):
+            System(_tcfg(**{flag: sensor}), device="cpu")
 
 
-@pytest.mark.parametrize("flag", ["use_objects", "semantic_online"])
+@pytest.mark.parametrize("flag", ["use_objects", "semantic_online",
+                                  "use_loop_closing"])
 def test_ported_options_are_accepted(flag):
-    """Objects and the online detector lane are ported: the System starts
-    with an empty object table, and with `semantic_online` a detector
-    loaded from the shipped weights."""
+    """Objects, the online detector lane and loop closing are ported: the
+    System starts with an empty object table; with `semantic_online` a
+    detector loaded from the shipped weights; with `use_loop_closing` a
+    loop closer holding the shipped vocabulary and an empty bow table."""
     s = System(_tcfg(**{flag: True}), device="cpu")
     assert int(s.objects.valid.sum()) == 0
     if flag == "semantic_online":
         assert s.detector is not None and s.detector.n_classes == 8
     else:
         assert s.detector is None
+    if flag == "use_loop_closing":
+        lc = s.loop_closer
+        assert lc.vocab.n_words == 8192 and not lc.bow.any()
+        assert s.n_loops_closed == s.n_relocalizations == 0
+    else:
+        assert s.loop_closer is None
+
+
+def test_missing_vocabulary_raises(monkeypatch, tmp_path):
+    """No random codebook in place of the shipped vocabulary: with loop
+    closing on and no vocabulary file the System raises."""
+    from eao_fusion_tpu_torch.mapping import vocabulary
+    monkeypatch.setattr(vocabulary, "DEFAULT_VOCAB_PATH",
+                        str(tmp_path / "none.npz"))
+    with pytest.raises(FileNotFoundError, match="vocabulary"):
+        System(_tcfg(use_loop_closing=True), device="cpu")
 
 
 def test_missing_detector_weights_raise(monkeypatch, tmp_path):
