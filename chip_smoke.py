@@ -60,12 +60,32 @@ Phases (any failure exits non-zero and prints no result line):
      only BoW relocalization can recover; then localization-only mode
      over the rest of the arc, which must leave every map tensor
      bit-identical and insert no keyframe;
- 14. one JSON line with every kernel's numbers (launches from phase 7),
+ 14. the steady chunked loop, `tum_fr3_config()` (planes, objects with
+     offline boxes, loop closing): `process_frame` on 8 frames of the arc,
+     then `slam_chunk` over the other 12 in chunks of 6, each followed by
+     `chunk_epilogue` (the bounds of tests/test_steady.py and
+     tests/test_chunk_epilogue.py); the sustained rate of the chunked
+     part, the epilogue's ms, the keyframe-trigger histogram;
+ 14b. loop closing in chunks: the spin15 sequence through `slam_chunk` and
+     `chunk_epilogue` in chunks of 8: a loop closed at a boundary that
+     harvested the detection dispatched at the one before, corrected ATE
+     < 10 cm (tests/test_async_detect.py);
+ 15. monocular input, `tum_fr3_config(sensor="mono", use_planes=False)`,
+     on the arc: two-view init, >= 3 keyframes, > 250 points,
+     scale-aligned ATE < 4 cm (tests/test_mono_e2e.py); the run's first K1
+     launch and first local-BA edge pass, only mono edges, against their
+     plain versions;
+ 16. stereo input with the port's own right renders: frame 0's stereo
+     depths (tests/test_stereo.py:27-45) and stereo tracking over the arc
+     (ATE < 5 cm, >= 2 keyframes);
+ 17. one JSON line with every kernel's numbers (launches from phase 7),
      the `nvidia-smi` line, and as the last line {"ok": true, "device":
      {...}}.
-Phases 6-9 and 11-13 each set the launch counts to 0 just before they
-drive the System and read them just after. No phase falls back to the CPU
-or to random weights, and a failure of the GBA thread fails the run.
+Phases 6-9, 11-13 and 14-16 each set the launch counts to 0 just before
+they drive the System (in 14 and 14b: the chunks) and read them just
+after; each holds K1 to two launches per tracked frame plus one per
+relocalization pose solve and K4 to K2's count. No phase falls back to the
+CPU or to random weights, and a failure of the GBA thread fails the run.
 
 All times are measured on the card in this run (CUDA events for kernels,
 the host clock around synchronized work for frames). `bound_ms` is the
@@ -783,13 +803,16 @@ def lane_summary(calls):
 
 
 def run_system(cfg, seq, tag: str, corrected: bool = False,
-               boxes: bool = False, timers: bool = False, on_system=None):
+               boxes: bool = False, timers: bool = False, on_system=None,
+               mono: bool = False, rights=None):
     """Drive `System(cfg)` on the card over `seq`, the launch counts set to
     0 just before and read just after; `on_system(s)` is called on the new
     System before its first frame; `boxes` passes each frame's
     rendered boxes as offline boxes, `timers` times the object lane's
-    stages. Returns the System, its summary (ATE of the raw or, with
-    `corrected`, the keyframe-corrected trajectory) and the counts."""
+    stages; `mono` passes no depth, `rights` passes right images and no
+    depth. Returns the System, its summary (ATE of the raw or, with
+    `corrected`, the keyframe-corrected trajectory; with `mono`,
+    scale-aligned from the first initialized frame on) and the counts."""
     import torch
     from eao_fusion_tpu_torch import kernels
     from eao_fusion_tpu_torch.io import tum
@@ -819,12 +842,14 @@ def run_system(cfg, seq, tag: str, corrected: bool = False,
     with timing as calls:
         torch.cuda.synchronize()
         kernels.reset_launches()
-        for f in seq.frames:
+        for i, f in enumerate(seq.frames):
             n_kf = s.n_keyframes
             gba.append(lc is not None and lc.gba_inflight())
             t = time.perf_counter()
-            s.process_frame(f.gray, f.depth, f.timestamp,
-                            boxes=f.boxes if boxes else None)
+            s.process_frame(f.gray, None if mono or rights is not None
+                            else f.depth, f.timestamp,
+                            boxes=f.boxes if boxes else None,
+                            right=None if rights is None else rights[i])
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t) * 1e3)
             is_kf.append(s.n_keyframes > n_kf)
@@ -832,8 +857,12 @@ def run_system(cfg, seq, tag: str, corrected: bool = False,
     peak = torch.cuda.max_memory_allocated()
 
     n = len(seq.frames)
-    err = tum.evaluate_ate_rpe(s.trajectory_tcw(corrected=corrected),
-                               seq.gt_tcw())
+    i0 = 0
+    if mono:
+        i0 = next((i for i, p in enumerate(s.trajectory)
+                   if not np.allclose(p, [1, 0, 0, 0, 0, 0, 0])), n - 1)
+    err = tum.evaluate_ate_rpe(s.trajectory_tcw(corrected=corrected)[i0:],
+                               seq.gt_tcw()[i0:], with_scale=mono)
     n_ba = len(kf_ms) - 2 if len(kf_ms) >= 2 else 0   # from the 3rd KF on
     track_ms = [m for m, k in zip(frame_ms[1:], is_kf[1:]) if not k]
     kf_frame_ms = [m for m, k in zip(frame_ms[1:], is_kf[1:]) if k]
@@ -860,6 +889,8 @@ def run_system(cfg, seq, tag: str, corrected: bool = False,
         "object_keyframes": s.n_obj_keyframes,
         "launches": counts,
     }
+    if mono:
+        summary["init_frame"] = i0
     if lc is not None:
         no_gba = [m for m, k, g in zip(frame_ms[1:], is_kf[1:], gba[1:])
                   if not (g or k)]
@@ -898,28 +929,32 @@ def _render(n_frames, camera, class_textures):
     return seq
 
 
+def _check_launches(counts, tracked: int, solves: int) -> None:
+    """K1 twice per tracked frame and once per relocalization pose solve,
+    the BA edge kernels launched, K4 once per LM iteration (as often as
+    K2)."""
+    if counts["pose_opt"] != 2 * tracked + solves:
+        raise AssertionError(f"pose kernel launched {counts['pose_opt']} "
+                             f"times for {tracked} tracked frames and "
+                             f"{solves} relocalization solves")
+    if counts["ba_edge_full"] < 1 or counts["ba_edge_chi2"] < 1:
+        raise AssertionError(f"BA edge kernels not launched: {counts}")
+    if counts["chol_solve"] != counts["ba_edge_full"]:
+        raise AssertionError(f"K4 launched {counts['chol_solve']} times for "
+                             f"{counts['ba_edge_full']} LM iterations")
+
+
 def _check_tracking(summary, counts, ate_cm):
     """ATE below `ate_cm`, local BA ran, no reset, and the launch counts of
-    the run: K1 twice per tracked frame and once per relocalization pose
-    solve, K4 once per LM iteration (as often as K2)."""
+    the run (`_check_launches`)."""
     if not summary["ate_cm"] < ate_cm:
         raise AssertionError(f"ATE {summary['ate_cm']:.2f} cm >= {ate_cm} cm")
     if summary["keyframes"] < 3 or summary["local_ba_runs"] < 1:
         raise AssertionError("local BA did not run")
     if summary["resets"]:
         raise AssertionError("tracking was lost and reset")
-    tracked = summary["tracked_frames"]
-    want = 2 * tracked + summary.get("reloc_pose_solves", 0)
-    if counts["pose_opt"] != want:
-        raise AssertionError(f"pose kernel launched {counts['pose_opt']} "
-                             f"times for {tracked} tracked frames and "
-                             f"{summary.get('reloc_pose_solves', 0)} "
-                             f"relocalization solves")
-    if counts["ba_edge_full"] < 1 or counts["ba_edge_chi2"] < 1:
-        raise AssertionError(f"BA edge kernels not launched: {counts}")
-    if counts["chol_solve"] != counts["ba_edge_full"]:
-        raise AssertionError(f"K4 launched {counts['chol_solve']} times for "
-                             f"{counts['ba_edge_full']} LM iterations")
+    _check_launches(counts, summary["tracked_frames"],
+                    summary.get("reloc_pose_solves", 0))
 
 
 def phase_main_path():
@@ -1539,6 +1574,368 @@ def phase_relocalization():
         raise AssertionError("the far revisit was not recovered")
 
 
+# ------------------------------------------------------------------ steady
+
+STEADY_WARM = 8
+STEADY_CHUNK = 6
+
+
+def _chunk_tensors(cfg, frames, boxes: bool):
+    """A chunk's (grays, depths, box tables, timestamps) on the card; each
+    box table padded to max_objects_2d rows of zeros (score 0)."""
+    import torch
+    bx = np.zeros((len(frames), cfg.objects.max_objects_2d, 6), np.float32)
+    for i, f in enumerate(frames):
+        if boxes and len(f.boxes):
+            b = np.asarray(f.boxes, np.float32)[:bx.shape[1]]
+            bx[i, :len(b)] = b
+    dev = torch.device("cuda")
+    return (torch.as_tensor(np.stack([f.gray for f in frames]), device=dev),
+            torch.as_tensor(np.stack([f.depth for f in frames]), device=dev),
+            torch.as_tensor(bx, device=dev),
+            [float(f.timestamp) for f in frames])
+
+
+def run_chunked(s, frames, chunk: int, boxes: bool = False):
+    """Drive System `s` (warmed up with `process_frame`) over `frames` in
+    the steady chunked mode: `slam_chunk` over each chunk, its frames
+    recorded, then `chunk_epilogue`. The launch counts are set to 0 just
+    before and read just after. Returns the per-chunk records ({"ms",
+    "epilogue_ms", "diag", "pending_before", "pending_after",
+    "loops_closed"}) and the counts."""
+    import torch
+    from eao_fusion_tpu_torch import kernels
+    from eao_fusion_tpu_torch.pipeline import steady
+    cfg = s.cfg
+    st = steady.init_steady_state(s)
+    kf_before = int(st.m.next_kf)
+    out = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for lo in range(0, len(frames), chunk):
+        g, d, b, ts = _chunk_tensors(cfg, frames[lo:lo + chunk], boxes)
+        t = time.perf_counter()
+        st, diag = steady.slam_chunk(st, g, d, b, ts, cfg=cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        s.record_chunk(st, diag, ts)
+        pending = s._pending_detect is not None
+        loops = s.n_loops_closed
+        t = time.perf_counter()
+        st = s.chunk_epilogue(st, kf_before)
+        torch.cuda.synchronize()
+        out.append(dict(ms=ms, epilogue_ms=(time.perf_counter() - t) * 1e3,
+                        diag={k: v.cpu().numpy() for k, v in diag.items()},
+                        pending_before=pending,
+                        pending_after=s._pending_detect is not None,
+                        loops_closed=s.n_loops_closed - loops))
+        kf_before = s.next_kf_hint
+    counts = dict(kernels.launches)
+    return st, out, counts
+
+
+def phase_steady(objects_summary, smi_line: str):
+    """The steady chunked loop at full width, `tum_fr3_config()` (planes,
+    objects with the renderer's boxes, loop closing): `process_frame` on 8
+    frames of the 20-frame arc, then `slam_chunk` over the other 12 in
+    chunks of 6, each followed by `chunk_epilogue`. The bounds of
+    tests/test_steady.py and tests/test_chunk_epilogue.py: every frame
+    > 30 inliers, >= 2 keyframes inserted, tracking OK, the last frame's
+    translation within 5 cm; K1 twice per frame, K4 as often as K2. Prints
+    the sustained rate of the chunked part (kf_every = 0), the epilogue's
+    ms per chunk and the keyframe-trigger histogram."""
+    import torch
+    from eao_fusion_tpu_torch.config import tum_fr3_config
+    from eao_fusion_tpu_torch.pipeline import tracking
+    from eao_fusion_tpu_torch.pipeline.system import System
+    cfg = tum_fr3_config()
+    if not (cfg.use_planes and cfg.use_objects and cfg.use_loop_closing):
+        raise AssertionError("the default configuration has planes, "
+                             "objects or loop closing off")
+    seq = _arc(N_FRAMES, cfg)
+    s = System(cfg)
+    warm_ms = []
+    for f in seq.frames[:STEADY_WARM]:
+        t = time.perf_counter()
+        s.process_frame(f.gray, f.depth, f.timestamp, boxes=f.boxes)
+        torch.cuda.synchronize()
+        warm_ms.append((time.perf_counter() - t) * 1e3)
+    reloc0 = s.reloc_stats.get("pose_solves", 0)
+    frames = seq.frames[STEADY_WARM:]
+    st, chunks, counts = run_chunked(s, frames, STEADY_CHUNK, boxes=True)
+    s._poll_gba(blocking=True)
+    ninl = np.concatenate([c["diag"]["n_inliers"] for c in chunks])
+    kfi = np.concatenate([c["diag"]["kf_inserted"] for c in chunks])
+    trig = np.concatenate([c["diag"]["kf_trigger"] for c in chunks])
+    pose = st.ts.pose.cpu().numpy()
+    t_err = float(np.linalg.norm(pose[4:7] - seq.frames[-1].tcw[4:7]))
+    total_s = sum(c["ms"] + c["epilogue_ms"] for c in chunks) / 1e3
+    hist = {int(k): int(v) for k, v in zip(*np.unique(trig,
+                                                      return_counts=True))}
+    log("steady: " + json.dumps({
+        "frames": len(frames), "chunk": STEADY_CHUNK, "kf_every": 0,
+        "sustained_fps": len(frames) / total_s,
+        "chunk_ms": [round(c["ms"], 2) for c in chunks],
+        "epilogue_ms": [round(c["epilogue_ms"], 2) for c in chunks],
+        "ms_per_frame_in_chunks": sum(c["ms"] for c in chunks) / len(frames),
+        "warmup_process_frame_ms": [round(m, 2) for m in warm_ms],
+        "objects_phase_median_frame_ms": objects_summary["median_frame_ms"],
+        "kf_trigger_histogram": hist, "kf_inserted": int(kfi.sum()),
+        "n_inliers": ninl.tolist(), "final_translation_err_cm":
+            t_err * 100.0, "map_objects": int(s.objects.valid.sum()),
+        "relocalizations": s.n_relocalizations, "launches": counts,
+        "card": smi_line}))
+    if not (ninl > 30).all():
+        raise AssertionError(f"tracking degraded in the chunks: {ninl}")
+    if kfi.sum() < 2:
+        raise AssertionError(f"{int(kfi.sum())} keyframes inserted (>= 2)")
+    if int(st.ts.status) != tracking.STATUS_OK:
+        raise AssertionError("not tracking at the end of the chunks")
+    if not t_err < 0.05:
+        raise AssertionError(f"final translation error {t_err:.4f} m")
+    _check_launches(counts, len(frames),
+                    s.reloc_stats.get("pose_solves", 0) - reloc0)
+    return counts
+
+
+def phase_loop_chunks():
+    """The loop phase's spin15 sequence in the chunked mode (chunks of 8
+    after 8 frames of `process_frame`), as tests/test_async_detect.py:
+    at least one loop closed, each at a boundary that harvested a
+    detection dispatched at the one before; the corrected trajectory
+    (frames 3 on) under 10 cm; K1 twice per chunked frame plus the
+    relocalization solves, K4 as often as K2."""
+    import torch
+    from eao_fusion_tpu_torch.io import tum
+    from eao_fusion_tpu_torch.pipeline.system import System
+    cfg = _loop_cfg()
+    seq = _spin(cfg.camera)
+    s = System(cfg)
+    for f in seq.frames[:8]:
+        s.process_frame(f.gray, f.depth, f.timestamp)
+    torch.cuda.synchronize()
+    reloc0 = s.reloc_stats.get("pose_solves", 0)
+    st, chunks, counts = run_chunked(s, seq.frames[8:], 8)
+    loops_run = s.n_loops_closed
+    s._poll_gba(blocking=True)
+    gt = seq.gt_tcw()
+    n = len(s.trajectory)
+    raw = tum.evaluate_ate_rpe(s.trajectory_tcw()[3:n], gt[3:n]).ate_rmse
+    corr = tum.evaluate_ate_rpe(s.trajectory_tcw(corrected=True)[3:n],
+                                gt[3:n]).ate_rmse
+    closed_at = [i for i, c in enumerate(chunks) if c["loops_closed"]]
+    ninl = np.concatenate([c["diag"]["n_inliers"] for c in chunks])
+    st_ = s.loop_closer.stats
+    log("loop in chunks: " + json.dumps({
+        "frames": n, "chunks": len(chunks), "keyframes": s.n_keyframes,
+        "loops_closed": s.n_loops_closed, "loops_closed_in_chunks":
+            loops_run, "closed_at_boundaries": closed_at,
+        "dispatched_at_boundaries": [i for i, c in enumerate(chunks)
+                                     if c["pending_after"]],
+        "gba_merges": s.n_gba_merges,
+        "relocalizations": s.n_relocalizations,
+        "lost_frames": int((ninl < 20).sum()),
+        "raw_ate_cm": raw * 100, "corrected_ate_cm": corr * 100,
+        "chunk_ms": [round(c["ms"], 1) for c in chunks],
+        "epilogue_ms": [round(c["epilogue_ms"], 1) for c in chunks],
+        "detect_ms_mean": st_.get("t_detect", 0.0) / max(
+            st_.get("n_detect", 0), 1) * 1e3,
+        "launches": counts}))
+    if s.n_loops_closed < 1:
+        raise AssertionError(f"no loop closed over {s.n_keyframes} "
+                             f"keyframes (chunked)")
+    for i in closed_at:
+        if not (i > 0 and chunks[i]["pending_before"]
+                and chunks[i - 1]["pending_after"]):
+            raise AssertionError(f"a loop closed at boundary {i} without a "
+                                 f"detection dispatched at boundary {i - 1}")
+    if not corr < 0.10:
+        raise AssertionError(f"corrected ATE {corr * 100:.2f} cm (< 10)")
+    _check_launches(counts, len(seq.frames) - 8,
+                    s.reloc_stats.get("pose_solves", 0) - reloc0)
+
+
+@contextlib.contextmanager
+def first_calls():
+    """Keep clones of the inputs of the first K1 launch and of the first
+    local-BA edge binding and its first K2 call, made while the context
+    is open: {"k1": (pose0, obs, planes, cam, cfg), "edges": (x, tgt, kw),
+    "k2": (cam_pose, pt_xyz, active)}."""
+    from eao_fusion_tpu_torch.solvers import ba_edge, pose_opt
+
+    def clone(t):
+        return type(t)(*(v.clone() if v is not None else None for v in t))
+    got = {}
+    k1 = pose_opt.optimize_pose_cuda
+    edge_cls = ba_edge.EdgePass
+
+    def k1_spy(pose0, obs, plane_obs=None, *, cam, cfg):
+        if "k1" not in got:
+            got["k1"] = (pose0.clone(), clone(obs), plane_obs, cam, cfg)
+        return k1(pose0, obs, plane_obs, cam=cam, cfg=cfg)
+
+    class EdgeSpy(edge_cls):
+        def __init__(self, x, tgt, **kw):
+            super().__init__(x, tgt, **kw)
+            if "edges" not in got:
+                got["edges"] = (clone(x), tgt.clone(), kw)
+                got["edge_pass"] = self
+
+        def full(self, cam_pose, pt_xyz, active):
+            if got.get("edge_pass") is self and "k2" not in got:
+                got["k2"] = (cam_pose.clone(), pt_xyz.clone(), active.clone())
+            return super().full(cam_pose, pt_xyz, active)
+
+    pose_opt.optimize_pose_cuda = k1_spy
+    ba_edge.EdgePass = EdgeSpy
+    try:
+        yield got
+    finally:
+        pose_opt.optimize_pose_cuda = k1
+        ba_edge.EdgePass = edge_cls
+
+
+def check_mono_kernels(got):
+    """The first K1 launch and the first local-BA edge pass of the mono
+    run, which carry only mono edges (uright < 0), against their plain
+    versions with the tolerances of phases 3 and 4."""
+    import torch
+    from eao_fusion_tpu_torch.solvers import ba_edge, pose_opt
+    pose0, obs, planes, cam, cfg = got["k1"]
+    if bool((obs.uright[obs.valid] >= 0).any()):
+        raise AssertionError("the mono run's K1 call has stereo edges")
+    ref = pose_opt.optimize_pose_plain(pose0, obs, planes, cam=cam, cfg=cfg)
+    ker = pose_opt.optimize_pose_cuda(pose0, obs, planes, cam=cam, cfg=cfg)
+    err = pose_err(ref.pose, ker.pose)
+    agree = float((ref.inliers == ker.inliers).float().mean())
+    dn = abs(int(ref.n_inliers) - int(ker.n_inliers))
+    log(f"mono K1 ({int(obs.valid.sum())} mono edges): pose err {err:.3g} "
+        f"(< 1e-3), inlier agreement {agree:.4f} (> 0.995), n_inliers "
+        f"{int(ref.n_inliers)} vs {int(ker.n_inliers)} (within 5)")
+    if not (err < 1e-3 and agree > 0.995 and dn <= 5):
+        raise AssertionError("mono K1 disagrees with its plain version")
+    x, tgt, kw = got["edges"]
+    cam_pose, pt_xyz, active = got["k2"]
+    x = x._replace(cam_pose=cam_pose, pt_xyz=pt_xyz)
+    if bool((x.obs_ur[active > 0] >= 0).any()):
+        raise AssertionError("the mono run's local BA has stereo edges")
+    edges = ba_edge.EdgePass(x, tgt, **kw)
+    args = (cam_pose, pt_xyz, active)
+    ref = ba_edge.edge_sums_plain(x, active, tgt, **kw)
+    ker = edges.full(*args)
+    # The gradient channels J^T W r of a window that local BA has nearly
+    # converged cancel: each residual is the difference of two pixel
+    # coordinates near 600 px, which float32 resolves to ~6e-5 px, so two
+    # float32 versions of one sum part by that much times sum |J| w. They
+    # are held to phase 4's per-edge K3 tolerance (1e-3 of max(chi2, 1))
+    # carried through the sum: 1e-3 of sum_e |J_e|^T W_e max(|r_e|, 1 px).
+    # The Hessian channels and Y keep phase 4's K2 tolerance.
+    r, J, w = ba_edge._edge_math(x, active, kw["cam"], kw["chi2_mono"],
+                                 kw["chi2_stereo"])[:3]
+    gb = torch.einsum("eri,e,er->ei", J.abs(), w, r.abs().clamp(min=1.0))
+    C, Pw = cam_pose.shape[0], pt_xyz.shape[0]
+    g_scale = (torch.zeros((C, 6), device=gb.device).index_add_(
+                   0, x.obs_cam.long(), gb[:, :6]),
+               torch.zeros((Pw + 1, 3), device=gb.device).index_add_(
+                   0, tgt.long(), gb[:, 6:])[:Pw])
+    n_e = int((active > 0).sum())
+    for name, a, b, dim, n_h, gs in (("acc_c", ref[0], ker[0], 0, 36,
+                                      g_scale[0]),
+                                     ("acc_p", ref[1], ker[1], 0, 9,
+                                      g_scale[1]),
+                                     ("Y", ref[2], ker[2], 1, None, None)):
+        h = (slice(None), slice(0, n_h)) if n_h else (slice(None),)
+        scale = a[h].abs().amax(dim=dim, keepdim=True).clamp(min=1e-30)
+        rel = float(((a[h] - b[h]).abs() / scale).max())
+        msg = (f"mono K2 ({n_e} mono edges) {name}: Hessian max err / "
+               f"channel max {rel:.3g} (< 1e-4)" if n_h else
+               f"mono K2 {name}: max err / channel max {rel:.3g} (< 1e-4)")
+        ok = rel < 1e-4
+        if n_h:
+            g = (slice(None), slice(n_h, None))
+            relg = float(((a[g] - b[g]).abs() / gs.clamp(min=1e-30)).max())
+            chan = float(((a[g] - b[g]).abs() / a[g].abs().amax(
+                dim=0, keepdim=True).clamp(min=1e-30)).max())
+            msg += (f"; gradient max err / sum |J| w max(|r|, 1) "
+                    f"{relg:.3g} (< 1e-3), / channel max {chan:.3g}")
+            ok = ok and relg < 1e-3
+        log(msg)
+        if not ok:
+            raise AssertionError(f"mono K2 disagrees ({name})")
+    ref3 = ba_edge.edge_pass_chi2_plain(x, active, **kw)
+    ker3 = edges.chi2_edges(*args)
+    for name, a, b in zip(("robust", "raw"), ref3[:2], ker3[:2]):
+        rel = float(((a - b).abs() / a.abs().clamp(min=1.0)).max())
+        log(f"mono K3 {name} chi2: max err / max(chi2, 1) {rel:.3g} "
+            f"(< 1e-3)")
+        if not rel < 1e-3:
+            raise AssertionError(f"mono K3 disagrees ({name})")
+
+
+def phase_mono():
+    """Monocular input at full width, `tum_fr3_config(sensor="mono",
+    use_planes=False)`, on the 20-frame arc: two-view initialization (the
+    GBA at init), at least 3 keyframes, more than 250 points, and a
+    scale-aligned ATE < 4 cm from the first initialized frame on
+    (tests/test_mono_e2e.py); the launch counts; one K1 launch and one
+    local-BA edge pass of the run, with only mono edges, against their
+    plain versions."""
+    from eao_fusion_tpu_torch.config import tum_fr3_config
+    cfg = tum_fr3_config(sensor="mono", use_planes=False)
+    seq = _arc(N_FRAMES, cfg)
+    with first_calls() as got:
+        s, summary, counts = run_system(cfg, seq, "mono", mono=True)
+    n_pts = int(s.map.next_pt)
+    log(f"mono: initialized at frame {summary['init_frame']}, "
+        f"{s.n_keyframes} keyframes, {n_pts} points, scale-aligned ATE "
+        f"{summary['ate_cm']:.3f} cm (< 4)")
+    _check_tracking(summary, counts, ate_cm=4.0)
+    if n_pts <= 250:
+        raise AssertionError(f"{n_pts} map points (> 250)")
+    check_mono_kernels(got)
+    return summary
+
+
+def phase_stereo():
+    """Stereo input at full width on the 20-frame arc with the port's own
+    right renders: frame 0's stereo depths (>= 150 matches, median
+    relative error < 5%, uR < uL; tests/test_stereo.py:27-45), then
+    stereo tracking, `tum_fr3_config(sensor="stereo", use_planes=False,
+    use_objects=False)`: ATE < 5 cm (tests/test_stereo.py:58-60), and, as
+    in every System phase, local BA and the launch counts."""
+    import torch
+    from eao_fusion_tpu_torch.config import tum_fr3_config
+    from eao_fusion_tpu_torch.frontend import stereo
+    from eao_fusion_tpu_torch.io import synthetic
+    cfg = tum_fr3_config(sensor="stereo", use_planes=False,
+                         use_objects=False)
+    seq = _arc(N_FRAMES, cfg)
+    t = time.perf_counter()
+    rights = synthetic.render_right_images(seq)
+    log(f"rendered {len(rights)} right images in "
+        f"{time.perf_counter() - t:.1f} s (host)")
+    f = seq.frames[0]
+    dev = torch.device("cuda")
+    feats = stereo.extract_stereo_features(
+        torch.as_tensor(f.gray, device=dev),
+        torch.as_tensor(rights[0], device=dev), orb_cfg=cfg.orb,
+        cam_cfg=cfg.camera)
+    depth, uv = feats.depth.cpu().numpy(), feats.uv.cpu().numpy()
+    ok = depth > 0
+    ui = np.clip(np.round(uv[ok, 0]).astype(int), 0, cfg.camera.width - 1)
+    vi = np.clip(np.round(uv[ok, 1]).astype(int), 0, cfg.camera.height - 1)
+    gt = f.depth[vi, ui]
+    rel = float(np.median(np.abs(depth[ok] - gt) / np.maximum(gt, 1e-6)))
+    ur_ok = bool(np.all(feats.uright.cpu().numpy()[ok] < uv[ok, 0] + 1e-3))
+    log(f"stereo depth, frame 0: {int(ok.sum())} matches (>= 150), median "
+        f"relative error {rel:.4f} (< 0.05), uR < uL: {ur_ok}")
+    if not (ok.sum() >= 150 and rel < 0.05 and ur_ok):
+        raise AssertionError("stereo matching is off")
+    _, summary, counts = run_system(cfg, seq, "stereo", rights=rights)
+    _check_tracking(summary, counts, ate_cm=5.0)
+    return summary
+
+
 CAM = (535.4, 539.2, 320.1, 247.6, 40.0)
 
 
@@ -1590,6 +1987,10 @@ def main() -> int:
         phase_online(obj_summary)
         phase_loop()
         phase_relocalization()
+        phase_steady(obj_summary, smi_line)
+        phase_loop_chunks()
+        phase_mono()
+        phase_stereo()
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

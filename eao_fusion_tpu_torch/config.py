@@ -349,7 +349,7 @@ class SystemConfig:
     capacity: MapCapacity = field(default_factory=MapCapacity)
     bow: BoWConfig = field(default_factory=BoWConfig)
     imu: ImuConfig = field(default_factory=ImuConfig)
-    # Sensor mode: "rgbd" | "mono"  (stereo reserved).
+    # Sensor mode: "rgbd" | "mono" | "stereo".
     sensor: str = "rgbd"
     # Run detector online (JAX YOLOX) vs. offline box files
     # (reference `~online` ROS param, `src/Tracking.cc:476-524`).

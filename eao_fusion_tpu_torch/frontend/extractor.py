@@ -31,6 +31,11 @@ def features_per_level(cfg: ORBConfig, total: Optional[int] = None
     return [int(a) for a in alloc]
 
 
+def scale_factors(cfg: ORBConfig) -> np.ndarray:
+    return np.array([cfg.scale_factor ** l for l in range(cfg.n_levels)],
+                    np.float32)
+
+
 def extract_from_pyramid(pyramid: List[torch.Tensor], *,
                          orb_cfg: ORBConfig) -> FrameFeatures:
     """Detection + orientation + description over a prebuilt pyramid;

@@ -1,6 +1,6 @@
 """Synthetic RGBD scene generator (numpy copy of
 `eao_fusion_tpu/io/synthetic.py`: room scene, ray casting, trajectories,
-sequences; the corridor scene, the nuisance model and right-eye renders
+sequences, right-eye renders; the corridor scene and the nuisance model
 come later).
 
 Plain numpy on the host; its quaternion math is the port's own
@@ -11,6 +11,7 @@ reads and writes the same cache files.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -388,7 +389,6 @@ def generate_sequence(n_frames: int = 30, seed: int = 0, style: str = "arc",
     """Render (or load from `cache_dir`) a ground-truthed RGBD sequence.
     A cache directory, keyed on all generation parameters, saves the
     rendering on later calls."""
-    import os
     cam = camera or CameraConfig()
     closed = style in ("spin", "spin15", "tour")
     tex_tag = "" if texture == "blocky" else f"_t{texture}"
@@ -432,3 +432,32 @@ def generate_sequence(n_frames: int = 30, seed: int = 0, style: str = "arc",
         np.savez_compressed(path, **payload)
     return SyntheticSequence(frames=frames, camera=cam, scene=scene)
 
+
+def render_right_images(seq: SyntheticSequence, seed: int = 0,
+                        cache_dir: Optional[str] = None) -> np.ndarray:
+    """Rectified right-eye grays [T, H, W] for an existing sequence: the
+    right camera sits at +baseline along the left camera's x axis, so
+    Tcw_right has the same rotation and t_r = t_l - b e_x (then uR = uL -
+    bf / z, the virtual right coordinate of `src/Frame.cc:1016`). The cache
+    file is the JAX package's, under the same key."""
+    cam = seq.camera
+    n = len(seq.frames)
+    path = None
+    if cache_dir:
+        t0 = seq.frames[0].tcw
+        key = (f"right_v1_n{n}_s{seed}_b{cam.baseline:.4f}"
+               f"_{cam.width}x{cam.height}_f{cam.fx:.1f}"
+               f"_h{hash(tuple(np.round(t0, 4))) & 0xffffffff:x}.npz")
+        path = os.path.join(cache_dir, key)
+        if os.path.exists(path):
+            return np.load(path)["right"]
+    rights = []
+    for f in seq.frames:
+        t = f.tcw.astype(np.float32).copy()
+        t[4] -= cam.baseline
+        rights.append(render_frame(seq.scene, cam, t)[0])
+    out = np.stack(rights)
+    if path:
+        os.makedirs(cache_dir, exist_ok=True)
+        np.savez_compressed(path, right=out)
+    return out

@@ -1,5 +1,5 @@
-"""Image ops: Gaussian kernel and pyramid construction (port of
-`eao_fusion_tpu/ops/image.py`).
+"""Image ops: Gaussian kernel, pyramid construction and batched window
+reads (port of `eao_fusion_tpu/ops/image.py`).
 
 `jax.image.resize(..., "bilinear")` antialiases when it downscales
 (`image.py:69`); the matching PyTorch call is `F.interpolate` with
@@ -42,3 +42,21 @@ def build_pyramid(img: torch.Tensor, n_levels: int, scale_factor: float
                                  mode="bilinear", antialias=True,
                                  align_corners=False)[0, 0])
     return out
+
+
+def windows(img: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor,
+            h: int, w: int) -> torch.Tensor:
+    """[B, h, w] windows of img [H, W] with top-left corners (r0, c0) [B],
+    each start handled as `lax.dynamic_slice` handles it in the JAX
+    package: a negative start counts from the end, then the start is
+    clamped so that the window fits (torch indexing would do neither)."""
+    def start(s, size, n):
+        s = s.long()
+        s = torch.where(s < 0, s + size, s)
+        return torch.clamp(s, 0, size - n)
+
+    rows = start(r0, img.shape[0], h)[:, None, None] + torch.arange(
+        h, device=img.device)[None, :, None]
+    cols = start(c0, img.shape[1], w)[:, None, None] + torch.arange(
+        w, device=img.device)[None, None, :]
+    return img[rows, cols]

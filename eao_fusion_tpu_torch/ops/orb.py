@@ -15,7 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from eao_fusion_tpu_torch.ops.image import gaussian_kernel1d
+from eao_fusion_tpu_torch.ops.image import gaussian_kernel1d, windows
 
 PATCH_HALF = 22          # rotated test points (±13·√2≈±19) + blur support ±3
 PATCH = 2 * PATCH_HALF + 1
@@ -42,25 +42,13 @@ _ORI_Y = (_yy * _ORI_MASK).astype(np.float32)
 
 
 def extract_patches(img: torch.Tensor, yx: torch.Tensor) -> torch.Tensor:
-    """Batched [N, PATCH, PATCH] patches centred at integer yx [N, 2].
-    The start is handled as `dynamic_slice` handles it in the JAX package
-    (`orb.py:50-57`): a negative start counts from the end, then the start
-    is clamped into the image (torch indexing would do neither). Detection
-    keeps valid keypoints away from the border; this fixes what the empty
-    slots (centre 0, 0) read."""
-    h, w = img.shape
-
-    def start(c, size):
-        s = c.long() - PATCH_HALF
-        s = torch.where(s < 0, s + size, s)
-        return torch.clamp(s, 0, size - PATCH)
-
-    y0 = start(yx[:, 0], h)
-    x0 = start(yx[:, 1], w)
-    off = torch.arange(PATCH, device=img.device)
-    rows = (y0[:, None] + off)[:, :, None]                  # [N, P, 1]
-    cols = (x0[:, None] + off)[:, None, :]                  # [N, 1, P]
-    return img[rows, cols]
+    """Batched [N, PATCH, PATCH] patches centred at integer yx [N, 2], the
+    start handled as `dynamic_slice` handles it in the JAX package
+    (`orb.py:50-57`, `image.windows`). Detection keeps valid keypoints
+    away from the border; this fixes what the empty slots (centre 0, 0)
+    read."""
+    return windows(img, yx[:, 0] - PATCH_HALF, yx[:, 1] - PATCH_HALF, PATCH,
+                   PATCH)
 
 
 def _blur_band_matrix(sigma: float, radius: int) -> np.ndarray:

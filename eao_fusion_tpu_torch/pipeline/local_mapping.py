@@ -1,9 +1,8 @@
 """Local mapping at keyframe rate: point culling, two-way fusion with the
 covisible neighbours, window selection, local BA (with the window's plane
 factors when planes are on), outlier observation removal, keyframe culling
-and point-statistic refresh (port of the RGBD path of
-`eao_fusion_tpu/pipeline/local_mapping.py`; `create_points_mono` comes
-with the monocular slice).
+and point-statistic refresh, and the monocular point creation by
+epipolar triangulation (port of `eao_fusion_tpu/pipeline/local_mapping.py`).
 
 Every top-k whose indices are used goes through `top_k_stable`:
 covisibility counts tie constantly, and `lax.top_k` takes the lower index.
@@ -21,8 +20,9 @@ from eao_fusion_tpu_torch.mapping import covisibility
 from eao_fusion_tpu_torch.mapping.map_state import (
     MapState, merge_obs_columns, refresh_obs_rows, set_rows,
     update_point_stats)
+from eao_fusion_tpu_torch.ops import lie
 from eao_fusion_tpu_torch.ops.topk import top_k_stable
-from eao_fusion_tpu_torch.solvers import ba
+from eao_fusion_tpu_torch.solvers import ba, triangulation
 from eao_fusion_tpu_torch.types import FrameFeatures
 
 
@@ -31,6 +31,76 @@ def _neighbour_row(covis: torch.Tensor, m: MapState, kf_slot: int,
     row = covis[kf_slot].clone()
     row[kf_slot] = self_value
     return torch.where(m.kf_valid, row, -1.0)
+
+
+def create_points_mono(m: MapState, kf_slot: int, *,
+                       cfg: SystemConfig) -> MapState:
+    """Monocular point creation: epipolar triangulation of the unmatched
+    keypoints of the new keyframe against its best covisible neighbours,
+    one neighbour after another (`LocalMapping::CreateNewMapPoints`,
+    `src/LocalMapping.cc:211-456`, with `SearchForTriangulation`). A
+    neighbour with 10 or fewer shared points makes nothing (its gate is
+    read once for all neighbours)."""
+    cam = (cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy)
+    s = cfg.orb.scale_factor
+    dev = m.kf_pose.device
+    covis = covisibility.covisibility_counts(
+        covisibility.observation_indicator(m))
+    row = _neighbour_row(covis, m, kf_slot, 0.0)
+    _, nbrs = top_k_stable(row, cfg.capacity.triangulation_neighbors)
+    ok_nb = ((covis[kf_slot, nbrs] > 10) & m.kf_valid[nbrs]
+             & (nbrs != kf_slot)).tolist()
+    lvl_a = m.kf_kp_level[kf_slot]
+    centre = lie.se3_inverse(m.kf_pose[kf_slot])[4:7]
+    for nb, ok in zip(nbrs.tolist(), ok_nb):
+        if not ok:
+            continue
+        # unassociated keypoints on both sides
+        va = m.kf_kp_valid[kf_slot] & (m.kf_pt_idx[kf_slot] < 0)
+        vb = m.kf_kp_valid[nb] & (m.kf_pt_idx[nb] < 0)
+        mm = fm.mutual_match(m.kf_desc_pm1[kf_slot], va,
+                             m.kf_kp_angle[kf_slot], m.kf_desc_pm1[nb], vb,
+                             m.kf_kp_angle[nb], th=cfg.matcher.th_low,
+                             use_ratio=True, check_rotation=True)
+        pair_ok = mm.target_idx >= 0
+        jb = torch.clamp(mm.target_idx.long(), min=0)
+        res = triangulation.triangulate_checked(
+            m.kf_pose[kf_slot], m.kf_pose[nb], m.kf_kp_uv[kf_slot],
+            m.kf_kp_uv[nb][jb], pair_ok, s ** (-2.0 * lvl_a.float()),
+            s ** (-2.0 * m.kf_kp_level[nb][jb].float()), cam=cam)
+        make = res.ok & pair_ok
+        new_ids = m.next_pt + torch.cumsum(make.to(torch.int32), 0) - 1
+        make = make & (new_ids < m.max_pt)          # writes past capacity drop
+        new_ids = torch.where(make, new_ids, -1).to(torch.int32)
+        tgt = new_ids[make].long()
+
+        view = res.xyz - centre
+        dist = torch.linalg.norm(view, dim=-1)
+        max_d = dist * (s ** lvl_a.float()) * 1.2
+        m = m._replace(
+            pt_xyz=set_rows(m.pt_xyz, tgt, res.xyz[make]),
+            pt_valid=set_rows(m.pt_valid, tgt, True),
+            pt_desc_pm1=set_rows(m.pt_desc_pm1, tgt,
+                                 m.kf_desc_pm1[kf_slot][make]),
+            pt_normal=set_rows(m.pt_normal, tgt, (
+                view / torch.clamp(dist[:, None], min=1e-9))[make]),
+            pt_min_dist=set_rows(m.pt_min_dist, tgt,
+                                 max_d[make] / (s ** cfg.orb.n_levels)),
+            pt_max_dist=set_rows(m.pt_max_dist, tgt, max_d[make]),
+            pt_ref_kf=set_rows(m.pt_ref_kf, tgt, int(kf_slot)),
+            pt_found=set_rows(m.pt_found, tgt, 1),
+            pt_visible=set_rows(m.pt_visible, tgt, 1),
+            pt_first_frame=set_rows(m.pt_first_frame, tgt,
+                                    m.kf_frame_id[kf_slot]),
+            next_pt=torch.clamp(m.next_pt + make.sum().to(torch.int32),
+                                max=m.max_pt))
+        # the observations, in both keyframes
+        kf_pt = m.kf_pt_idx.clone()
+        kf_pt[kf_slot] = torch.where(make, new_ids, kf_pt[kf_slot])
+        kf_pt[nb, jb[make]] = new_ids[make]
+        m = m._replace(kf_pt_idx=kf_pt)
+    return refresh_obs_rows(m, torch.cat([
+        torch.tensor([kf_slot], device=dev), nbrs]))
 
 
 def fuse_neighbors(m: MapState, kf_slot: int, *,

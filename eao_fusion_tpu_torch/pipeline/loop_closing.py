@@ -23,9 +23,16 @@ snapshot's tensors are copies, so nothing the main path does later can
 reach them. The thread waits for its stream before it ends, and the merge
 makes the caller's stream wait for the GBA's last event. A failure in the
 thread is kept and raised by `poll_gba` (or `abort_gba`), not printed and
-dropped as the JAX thread does. The batch entry points (`dispatch_detect`,
-`harvest_detect`, `on_keyframes`) belong to the steady chunked loop and
-are not ported yet.
+dropped as the JAX thread does.
+
+Batched detection for the steady chunked loop: `dispatch_detect` refreshes
+the observation indicator and writes the chunk's bow rows on the caller's
+stream, then enqueues the covisibility product and the L1 scores on a
+stream of its own (after an event recorded on the caller's stream) and
+returns a pending handle without reading anything back; the next chunk
+runs meanwhile. `harvest_detect` makes the caller's stream wait for the
+handle's event, reads the statistics once and gates each keyframe as
+`on_keyframe` does.
 """
 
 from __future__ import annotations
@@ -46,11 +53,23 @@ from eao_fusion_tpu_torch.solvers import ba, pose_graph
 from eao_fusion_tpu_torch.types import FrameFeatures
 
 N_PAIR_PAD = 512     # the Sim3 pair table: the best matches, masked
+DETECT_BATCH = 64    # keyframe slots per batched detection
 
 
 def _covis(m: MapState) -> Tuple[torch.Tensor, torch.Tensor]:
     Z = covisibility.observation_indicator(m)
     return Z, covisibility.covisibility_counts(Z)
+
+
+def _batch_scores(obs_ind: torch.Tensor, kf_valid: torch.Tensor,
+                  bow: torch.Tensor, slots: List[int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L1 scores [S, K] of the slots' bow rows against the table, the
+    covisibility counts [K, K])."""
+    Z = (obs_ind & kf_valid[:, None]).float()
+    scores = torch.stack([vocabulary.l1_scores(bow[s], bow, kf_valid)
+                          for s in slots])
+    return scores, covisibility.covisibility_counts(Z)
 
 
 class LoopCloser:
@@ -81,6 +100,7 @@ class LoopCloser:
         self._gba_exc: Optional[BaseException] = None
         self._gba_snap = None
         self._gba_pt_map = None
+        self._detect_stream = None    # the batched detection's CUDA stream
 
     def _tally(self, name: str, t0: float) -> None:
         self.stats["t_" + name] = (self.stats.get("t_" + name, 0.0)
@@ -796,6 +816,107 @@ class LoopCloser:
             out = out._replace(pl_coeff=torch.from_numpy(coeff).to(dev),
                                pl_boundary=torch.from_numpy(bnd).to(dev))
         return out
+
+    # ------------------------------------------------------------ batched
+    def dispatch_detect(self, m: MapState, slots) -> Tuple[MapState, dict]:
+        """The asynchronous half of batched loop detection for up to
+        DETECT_BATCH keyframe slots: the indicator refresh and the bow
+        rows, then the covisibility product and the L1 scores of every
+        slot against the bow table enqueued on the detection stream,
+        nothing read back.
+        Returns the map and the pending handle ({"slots", "scores" [S, K],
+        "covis" [K, K], "done" event or None}); harvest it with
+        `harvest_detect`."""
+        slots = [int(x) for x in slots]
+        assert 0 < len(slots) <= DETECT_BATCH
+        t0 = time.perf_counter()
+        m = refresh_obs_ind(m)
+        for slot in slots:
+            self.add_keyframe_bow(m, slot)
+        # the inputs as they are now: later writes to the live bow table
+        # cannot reach the detection stream's reads
+        obs, kf_valid, bow = m.obs_ind, m.kf_valid, self.bow.clone()
+        done = None
+        if self.device.type == "cuda":
+            main = torch.cuda.current_stream(self.device)
+            if self._detect_stream is None:
+                self._detect_stream = torch.cuda.Stream(self.device)
+            side = self._detect_stream
+            side.wait_stream(main)
+            for t in (obs, kf_valid, bow):
+                t.record_stream(side)     # freed only once side is done
+            with torch.cuda.stream(side):
+                scores, covis = _batch_scores(obs, kf_valid, bow, slots)
+                done = torch.cuda.Event()
+                done.record(side)
+        else:
+            scores, covis = _batch_scores(obs, kf_valid, bow, slots)
+        self.stats["t_detect"] = (self.stats.get("t_detect", 0.0)
+                                  + time.perf_counter() - t0)
+        self.stats["n_detect"] = self.stats.get("n_detect", 0) + len(slots)
+        return m, {"slots": slots, "scores": scores, "covis": covis,
+                   "done": done}
+
+    def harvest_detect(self, m: MapState, pending: dict,
+                       kf_valid: Optional[np.ndarray] = None
+                       ) -> Tuple[MapState, int, int]:
+        """Read a pending detection's statistics and gate its slots in
+        insertion order; on a candidate, Sim3 and `correct` run here against
+        the current map. After a closure the remaining slots go through
+        `on_keyframes`, which computes their statistics again, so no later
+        slot gates on stale covisibility or scores. `kf_valid` is the
+        validity mask if the caller has read it already. Returns (map,
+        loops closed, the last closing slot or -1)."""
+        K = m.max_kf
+        if pending["done"] is not None:
+            main = torch.cuda.current_stream(self.device)
+            main.wait_event(pending["done"])
+            for t in (pending["scores"], pending["covis"]):
+                t.record_stream(main)
+        parts = [pending["scores"].reshape(-1), pending["covis"].reshape(-1)]
+        if kf_valid is None:
+            parts.append(m.kf_valid.float())
+        packed = torch.cat(parts).cpu().numpy()
+        S = len(pending["slots"])
+        scores = packed[:S * K].reshape(S, K)
+        covis = packed[S * K:S * K + K * K].reshape(K, K)
+        kf_valid = (packed[S * K + K * K:] > 0.5 if kf_valid is None
+                    else np.asarray(kf_valid).astype(bool))
+        slots = pending["slots"]
+        for i, slot in enumerate(slots):
+            cand = self._detect_from_stats(slot, scores[i], covis, kf_valid)
+            if cand < 0:
+                continue
+            t0 = time.perf_counter()
+            g = self.compute_sim3(m, slot, cand)
+            self._tally("sim3", t0)
+            if g is None:
+                continue
+            t0 = time.perf_counter()
+            m = self.correct(m, slot, cand, g)
+            self._tally("correct", t0)
+            rest = slots[i + 1:]
+            if rest:
+                m, n2, last2 = self.on_keyframes(m, rest)
+                return m, 1 + n2, (last2 if last2 >= 0 else slot)
+            return m, 1, slot
+        return m, 0, -1
+
+    def on_keyframes(self, m: MapState, slots
+                     ) -> Tuple[MapState, int, int]:
+        """The synchronous batch form: dispatch and harvest per sub-batch
+        of up to DETECT_BATCH slots, with the semantics of one
+        `on_keyframe` per slot (a closure mid-batch detects on the rest
+        with fresh statistics). Returns (map, loops closed, the last closing slot or
+        -1)."""
+        slots = [int(x) for x in slots]
+        n_closed, last = 0, -1
+        for lo in range(0, len(slots), DETECT_BATCH):
+            m, pending = self.dispatch_detect(m, slots[lo:lo + DETECT_BATCH])
+            m, n, ls = self.harvest_detect(m, pending)
+            n_closed += n
+            last = ls if ls >= 0 else last
+        return m, n_closed, last
 
     # ------------------------------------------------------- per keyframe
     def on_keyframe(self, m: MapState, slot: int

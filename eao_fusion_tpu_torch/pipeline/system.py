@@ -1,5 +1,5 @@
-"""System facade for RGBD SLAM with plane and object landmarks, local
-mapping, loop closing and relocalization (port of the RGBD subset of
+"""System facade for RGBD, stereo and monocular SLAM with plane and object
+landmarks, local mapping, loop closing and relocalization (port of
 `eao_fusion_tpu/pipeline/system.py`).
 
 The host sequences the per-frame plane segmentation, `track_frame`,
@@ -7,11 +7,18 @@ relocalization on loss and the EAO object lane (frame objects, ensemble
 association, object update), the keyframe-rate `insert_keyframe_rgbd`,
 plane-map update, `local_mapping_step`, object merge and loop closing
 (detection, Sim3, correction, the global BA on a side thread, merged when
-it finishes), and the episodic point and keyframe compaction. Boxes come
-from the caller (offline box files) or, with `semantic_online`, from the
-port's own YOLOX lane. Localization-only mode tracks against a frozen map.
-Monocular and stereo input come with a later slice of the port: a config
-or a call that needs them raises NotImplementedError.
+it finishes), and the episodic point and keyframe compaction. A frame with
+depth is RGBD; a rectified right image without depth is stereo (SAD
+matching fills the depth); a frame with neither, or any frame under
+`sensor="mono"`, is monocular: two-view initialization, then epipolar
+triangulation at every keyframe. Boxes come from the caller (offline box
+files) or, with `semantic_online`, from the port's own YOLOX lane.
+Localization-only mode tracks against a frozen map.
+
+The steady chunked mode (`pipeline/steady.py`) runs frames without this
+facade; `chunk_epilogue` is its chunk-boundary protocol: loop detection
+dispatched at one boundary and harvested at the next, the GBA merge,
+compaction and relocalization.
 """
 
 from __future__ import annotations
@@ -24,17 +31,18 @@ import torch
 
 from eao_fusion_tpu_torch import DeviceLike, resolve_device
 from eao_fusion_tpu_torch.config import COCO_CLASS_WHITELIST, SystemConfig
-from eao_fusion_tpu_torch.frontend import extractor, yolox
+from eao_fusion_tpu_torch.frontend import extractor, matcher, yolox
+from eao_fusion_tpu_torch.frontend import stereo as stereo_fe
 from eao_fusion_tpu_torch.mapping import map_state as ms
 from eao_fusion_tpu_torch.mapping import plane_map, vocabulary
 from eao_fusion_tpu_torch.objects import association
 from eao_fusion_tpu_torch.objects import merge as obj_merge
 from eao_fusion_tpu_torch.objects import object_map as om
 from eao_fusion_tpu_torch.objects import update as obj_update
-from eao_fusion_tpu_torch.ops import lie
+from eao_fusion_tpu_torch.ops import lie, twoview
 from eao_fusion_tpu_torch.ops import planes as plane_ops
-from eao_fusion_tpu_torch.pipeline import (local_mapping, relocalization,
-                                           tracking)
+from eao_fusion_tpu_torch.pipeline import (local_mapping, loop_closing,
+                                           relocalization, steady, tracking)
 from eao_fusion_tpu_torch.pipeline.loop_closing import LoopCloser
 from eao_fusion_tpu_torch.types import FrameFeatures, FramePlanes
 
@@ -57,13 +65,6 @@ def insert_keyframe_rgbd(m: ms.MapState, feats: FrameFeatures,
                                     n_levels=cfg.orb.n_levels)
     m = ms.refresh_obs_rows(m, torch.tensor([slot], device=pose.device))
     return ms.update_point_stats(m)
-
-
-def _check_slice(cfg: SystemConfig) -> None:
-    if cfg.sensor != "rgbd":
-        raise NotImplementedError(
-            f"sensor {cfg.sensor!r}: not ported yet (RGBD only; monocular "
-            f"and stereo come with a later slice)")
 
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -99,14 +100,13 @@ def make_detector(device: torch.device) -> yolox.Detector:
 
 
 class System:
-    """Feed RGBD frames, read poses and the trajectory. Runs on `cuda`
-    unless `device` names another; with no card and no device named it
-    raises."""
+    """Feed RGBD, stereo or monocular frames, read poses and the
+    trajectory. Runs on `cuda` unless `device` names another; with no card
+    and no device named it raises."""
 
     def __init__(self, cfg: Optional[SystemConfig] = None,
                  device: DeviceLike = None):
         self.cfg = cfg or SystemConfig()
-        _check_slice(self.cfg)
         self.device = resolve_device(device)
         self.map = ms.empty_map(self.cfg, self.device)
         self.track = tracking.init_track_state(self.cfg, self.device)
@@ -123,11 +123,17 @@ class System:
         self.events: List[dict] = []   # {"frame_id", "event", ...}
         self.objects = om.empty_table(self.cfg, self.device)
         self._last_fo: Optional[om.FrameObjects] = None
-        # the object lane's randoms (isolation-forest draws), in place of
-        # the JAX System's PRNGKey(7)
+        self._mono_ref = None       # monocular init: (feats, t, frame id)
+        # the chunked mode's host state: the map's insertion cursor as of
+        # the last chunk boundary, the loop detection dispatched there (a
+        # LoopCloser pending handle) and the last keyframe compaction's
+        # slot remap
+        self.next_kf_hint = 0
+        self._pending_detect: Optional[dict] = None
+        self._last_kf_remap: Optional[np.ndarray] = None
         # the randoms of the object lane (isolation-forest draws), loop
-        # closing and relocalization (RANSAC draws), in place of the JAX
-        # System's PRNGKey(7)
+        # closing, relocalization and monocular init (RANSAC draws), in
+        # place of the JAX System's PRNGKey(7)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(7)
         self.n_obj_keyframes = 0    # keyframes inserted for a new object
@@ -161,6 +167,10 @@ class System:
         self.track = tracking.init_track_state(self.cfg, self.device)
         self.objects = om.empty_table(self.cfg, self.device)
         self._last_fo = None
+        self._mono_ref = None
+        # a pending detection belongs to the old map (the JAX System keeps
+        # it)
+        self._pending_detect = None
         self.n_keyframes = 0
         self._traj_refs = [(-1, raw) for raw, _ in
                            zip(self.trajectory, self._traj_refs)]
@@ -178,15 +188,17 @@ class System:
                       timestamp: float = 0.0, boxes=None,
                       initial_pose: Optional[np.ndarray] = None,
                       right=None) -> np.ndarray:
-        """Track one RGBD frame; returns the estimated Tcw [7]. `boxes` are
-        the frame's detections, [B, 6] rows (class, x, y, w, h, score);
-        with the online detector and no boxes given, the detector's are
-        used."""
-        if depth is None or right is not None:
-            raise NotImplementedError(
-                "only RGBD input is ported (monocular and stereo come with "
-                "a later slice)")
+        """Track one frame; returns the estimated Tcw [7]. With `depth` it
+        is RGBD; with a rectified `right` image and no depth (and a sensor
+        other than mono), stereo; otherwise monocular (`TrackRGBD` /
+        `TrackStereo` / `TrackMonocular`, `src/System.cc:142-249`). `boxes`
+        are the frame's detections, [B, 6] rows (class, x, y, w, h,
+        score); with the online detector and no boxes given, the
+        detector's are used. `initial_pose` seeds the world frame at
+        initialization."""
         cfg = self.cfg
+        stereo = right is not None and depth is None and cfg.sensor != "mono"
+        mono = (depth is None and not stereo) or cfg.sensor == "mono"
         online = self.detector is not None and boxes is None
         if online:
             # dispatch detection before feature extraction so that the two
@@ -194,14 +206,25 @@ class System:
             # `src/Tracking.cc:318`)
             rgb = np.asarray(gray)
             self.detector.submit(np.stack([rgb, rgb, rgb], axis=-1))
-        depth_t = self._tensor(depth)
-        feats = extractor.extract_features(
-            self._tensor(gray), depth_t, orb_cfg=cfg.orb,
-            cam_cfg=cfg.camera, with_depth=True)
+        depth_t = None if depth is None else self._tensor(depth)
+        if stereo:
+            feats = stereo_fe.extract_stereo_features(
+                self._tensor(gray), self._tensor(right), orb_cfg=cfg.orb,
+                cam_cfg=cfg.camera)
+        else:
+            feats = extractor.extract_features(
+                self._tensor(gray), None if mono else depth_t,
+                orb_cfg=cfg.orb, cam_cfg=cfg.camera, with_depth=not mono)
         planes = None
-        if cfg.use_planes:
+        if cfg.use_planes and not mono and depth_t is not None:
             planes = plane_ops.segment_planes(depth_t, cam=cfg.camera,
                                               cfg=cfg.planes)
+
+        if mono and int(self.track.status) == tracking.STATUS_UNINIT:
+            pose = self._try_mono_init(feats, timestamp, initial_pose)
+            self._record(pose, timestamp)
+            self.frame_id += 1
+            return pose.cpu().numpy()
 
         if int(self.track.status) == tracking.STATUS_UNINIT:
             pose = self._tensor(initial_pose if initial_pose is not None
@@ -315,6 +338,110 @@ class System:
         self.frame_id += 1
         return self.track.pose.cpu().numpy()
 
+    def _try_mono_init(self, feats: FrameFeatures, timestamp: float,
+                       initial_pose) -> torch.Tensor:
+        """Monocular two-view initialization (`MonocularInitialization` and
+        `CreateInitialMapMonocular`, `src/Tracking.cc:1337-1549`): hold a
+        reference frame, match against it, run the H / F initializer on
+        draws from the System's generator, build the initial map with the
+        median scene depth scaled to 1, then the full GBA when loop closing
+        is on. Returns the frame's pose (the identity until it succeeds)."""
+        cfg = self.cfg
+        dev = self.device
+        ident = lie.se3_identity(device=dev)
+        if self._mono_ref is None or int(feats.valid.sum()) < 100:
+            self._mono_ref = (feats, timestamp, self.frame_id)
+            return ident
+        ref_feats, ref_ts, ref_fid = self._mono_ref
+        mm = matcher.mutual_match(ref_feats.desc_pm1, ref_feats.valid,
+                                  ref_feats.angle, feats.desc_pm1,
+                                  feats.valid, feats.angle, th=64,
+                                  use_ratio=True, check_rotation=True)
+        tgt = mm.target_idx.cpu().numpy()
+        ia = np.where(tgt >= 0)[0]
+        if len(ia) < 100:
+            self._mono_ref = (feats, timestamp, self.frame_id)
+            return ident
+        n = cfg.orb.max_keypoints
+        m_ = len(ia)
+        ia_t = torch.as_tensor(ia, device=dev)
+        uv1 = torch.zeros((n, 2), device=dev)
+        uv2 = torch.zeros((n, 2), device=dev)
+        valid = torch.zeros((n,), dtype=torch.bool, device=dev)
+        uv1[:m_] = ref_feats.uv[ia_t]
+        uv2[:m_] = feats.uv[mm.target_idx[ia_t].long()]
+        valid[:m_] = True
+        idx_f, idx_h = twoview.draw_two_view_hypotheses(valid,
+                                                         self.generator)
+        cam = (cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy)
+        res = twoview.initialize_two_view(uv1, uv2, valid, idx_f, idx_h,
+                                          cam=cam)
+        if not bool(res.success):
+            return ident
+
+        # scale: the median triangulated depth becomes 1
+        # (`src/Tracking.cc:1497-1515`)
+        ok = res.ok.cpu().numpy()
+        xyz = res.xyz.cpu().numpy()
+        med = float(np.median(xyz[ok][:, 2]))
+        if med <= 0:
+            return ident
+        tcw2 = res.tcw2.cpu().numpy().copy()
+        tcw2[4:7] /= med
+
+        pose1 = (self._tensor(initial_pose) if initial_pose is not None
+                 else ident)
+        kp_empty = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        m, k1 = ms.insert_keyframe(self.map, ref_feats, pose1, ref_fid,
+                                   ref_ts, kp_empty)
+        m, k2 = ms.insert_keyframe(
+            m, feats, lie.se3_compose(self._tensor(tcw2), pose1),
+            self.frame_id, timestamp, kp_empty)
+        # the triangulated points, observed in both keyframes; `ok` indexes
+        # the padded match slots, so map back to keypoint ids
+        kp1 = ia[np.where(ok[:m_])[0]]
+        kp2 = tgt[kp1]
+        pids = torch.arange(len(kp1), device=dev)
+        xyz_w = lie.se3_apply(lie.se3_inverse(pose1),
+                              self._tensor(xyz[:m_][ok[:m_]] / med))
+        kp1_t = torch.as_tensor(kp1, device=dev)
+        kp2_t = torch.as_tensor(kp2, device=dev).long()
+        kf_pt = m.kf_pt_idx.clone()
+        kf_pt[k1, kp1_t] = pids.to(torch.int32)
+        kf_pt[k2, kp2_t] = pids.to(torch.int32)
+        m = m._replace(
+            pt_xyz=ms.set_rows(m.pt_xyz, pids, xyz_w),
+            pt_valid=ms.set_rows(m.pt_valid, pids, True),
+            pt_desc_pm1=ms.set_rows(m.pt_desc_pm1, pids,
+                                    feats.desc_pm1[kp2_t]),
+            pt_ref_kf=ms.set_rows(m.pt_ref_kf, pids, k1),
+            pt_max_dist=ms.set_rows(m.pt_max_dist, pids, 10.0),
+            pt_found=ms.set_rows(m.pt_found, pids, 2),
+            pt_visible=ms.set_rows(m.pt_visible, pids, 2),
+            pt_first_frame=ms.set_rows(m.pt_first_frame, pids, ref_fid),
+            next_pt=tracking._i32(len(kp1), dev), kf_pt_idx=kf_pt)
+        self.map = ms.update_point_stats(ms.refresh_obs_ind(m))
+        self.n_keyframes = 2
+
+        # full BA on the initial map (`Optimizer::GlobalBundleAdjustemnt`
+        # at mono init, `src/Tracking.cc:1466`)
+        lc = self.loop_closer
+        if lc is not None:
+            self.map = lc._global_ba(self.map)
+            lc.add_keyframe_bow(self.map, k1)
+            lc.add_keyframe_bow(self.map, k2)
+
+        pose2 = self.map.kf_pose[k2]
+        self.track = self.track._replace(
+            pose=pose2, last_pose=pose2, last_feats=feats,
+            kp_pt=self.map.kf_pt_idx[k2],
+            status=tracking._i32(tracking.STATUS_OK, dev),
+            frame_id=tracking._i32(self.frame_id, dev),
+            last_kf_frame_id=tracking._i32(self.frame_id, dev),
+            ref_kf=tracking._i32(k2, dev))
+        self._mono_ref = None
+        return pose2
+
     def _relocalize(self, feats: FrameFeatures) -> bool:
         """BoW retrieval, RANSAC and the pose solve against the map; on
         success tracking resumes from the recovered pose."""
@@ -372,9 +499,16 @@ class System:
         """Merge a finished asynchronous GBA into the live map (the
         reference's post-GBA map update under mMutexGBA). The tracking pose
         is rebased through its reference keyframe: the camera-relative
-        transform T_c,ref is invariant under map corrections."""
+        transform T_c,ref is invariant under map corrections. A blocking
+        poll first harvests a pending chunk-boundary loop detection (its
+        correction may itself launch a GBA, joined here)."""
         lc = self.loop_closer
-        if lc is None or lc._gba_thread is None:
+        if lc is None:
+            return False
+        if blocking and self._pending_detect is not None:
+            pend, self._pending_detect = self._pending_detect, None
+            self._harvest(int(self.map.next_kf) - 1, pend)
+        if lc._gba_thread is None:
             return False
         ref = int(self.track.ref_kf)
         before = self.map.kf_pose[ref] if ref >= 0 else None
@@ -389,11 +523,126 @@ class System:
                 last_pose=lie.se3_compose(self.track.last_pose, rebase))
         return merged
 
-    def _on_keyframe(self, slot: int) -> None:
-        """Keyframe-rate mapping: a finished GBA merged first; culling,
-        fusion, local BA, stat refresh, object merge; point compaction;
-        loop closing; keyframe compaction."""
+    def _harvest(self, anchor: int, pend: Optional[dict] = None,
+                 kf_valid: Optional[np.ndarray] = None,
+                 slots: Optional[List[int]] = None) -> None:
+        """Loop detection on a chunk's keyframes: harvest the pending
+        handle `pend` (or, with `slots`, detect on them synchronously); a
+        closure moves the tracker by the correction of keyframe `anchor`,
+        the newest."""
+        anchor_pose_old = self.map.kf_pose[anchor]
+        if slots is not None:
+            self.map, n_closed, _ = self.loop_closer.on_keyframes(self.map,
+                                                                  slots)
+        else:
+            self.map, n_closed, _ = self.loop_closer.harvest_detect(
+                self.map, pend, kf_valid=kf_valid)
+        if n_closed:
+            self.n_loops_closed += n_closed
+            self._apply_loop_delta(anchor, anchor_pose_old)
+
+    def _apply_loop_delta(self, anchor: int,
+                          anchor_pose_old: torch.Tensor) -> None:
+        """Move the tracker by the anchor keyframe's correction (T' = T ∘
+        T_aw_old⁻¹ ∘ T_aw_new): the chunk's last frame keeps its motion
+        relative to the anchor instead of rewinding to the closed keyframe
+        (which may lie frames earlier, and whose point row is keyed to the
+        keyframe's keypoints, not to last_feats'). Point ids that loop
+        fusion invalidated are dropped and found again by the next
+        local-map search."""
+        delta = lie.se3_compose(lie.se3_inverse(anchor_pose_old),
+                                self.map.kf_pose[anchor])
+        kp = self.track.kp_pt
+        kp = torch.where(
+            (kp >= 0) & self.map.pt_valid[torch.clamp(kp.long(), min=0)],
+            kp, -1)
+        self.track = self.track._replace(
+            pose=lie.se3_compose(self.track.pose, delta),
+            last_pose=lie.se3_compose(self.track.last_pose, delta),
+            kp_pt=kp)
+
+    def chunk_epilogue(self, st, kf_before: int):
+        """The chunk-boundary protocol of the steady chunked mode: take the
+        facade's state from the steady carry `st`; harvest the loop
+        detection dispatched at the last boundary (its device work ran
+        beside this chunk, so a loop arising in chunk k is corrected at
+        boundary k + 1); merge a finished GBA; compact point and keyframe
+        slots when low; dispatch detection for this chunk's keyframes
+        (slots from `kf_before` on), after compaction so that the slot ids
+        in the handle stay current; relocalize on the last frame's
+        features if the chunk ended LOST. Returns the refreshed carry."""
+        self.map, self.track, self.objects = st.m, st.ts, st.objs
+        # one device -> host read for every scalar the host gates on
+        K = self.map.max_kf
+        vals = torch.cat([torch.stack([
+            st.m.next_kf, st.m.next_pt, st.ts.status]).long(),
+            st.m.kf_valid.long()]).cpu().numpy()
+        next_kf, next_pt, status = (int(v) for v in vals[:3])
+        kf_valid_h = vals[3:3 + K] > 0
+        self.frame_id = st.frame_id
+        self.n_keyframes = next_kf
+        lc = self.loop_closer
+        if lc is not None and self._pending_detect is not None:
+            pend, self._pending_detect = self._pending_detect, None
+            self._harvest(next_kf - 1, pend, kf_valid=kf_valid_h)
         self._poll_gba()
+        # the triggers read the values above (stale only after a closure,
+        # whose fusion can only shrink the tables)
+        pts_compacted = self._maybe_compact_points(next_pt=next_pt)
+        kfs_compacted = self._maybe_compact_keyframes(next_kf=next_kf,
+                                                      kf_valid=kf_valid_h)
+        self.next_kf_hint = (int(self.map.next_kf) if kfs_compacted
+                             else next_kf)
+        if lc is not None and kf_before < next_kf:
+            new_slots = list(range(kf_before, next_kf))
+            if kfs_compacted:
+                remap = self._last_kf_remap
+                new_slots = [int(remap[k]) for k in new_slots
+                             if remap[k] >= 0]
+            if len(new_slots) > loop_closing.DETECT_BATCH:
+                # an oversized chunk takes the synchronous batch path
+                self._harvest(self.next_kf_hint - 1, slots=new_slots)
+            elif new_slots:
+                self.map, self._pending_detect = lc.dispatch_detect(
+                    self.map, new_slots)
+        if status == tracking.STATUS_LOST and lc is not None:
+            self._relocalize(self.track.last_feats)
+
+        last_fo = st.last_fo
+        if pts_compacted and self.cfg.use_objects:
+            # the cached frame objects hold old point ids: an empty table
+            last_fo = steady.empty_frame_objects(self.cfg, self.map,
+                                                 self.track)
+        return st._replace(m=self.map, ts=self.track, objs=self.objects,
+                           last_fo=last_fo, frame_id=self.frame_id)
+
+    def record_chunk(self, st, diag: dict, timestamps) -> None:
+        """Record a chunk's frames in the trajectory and the diagnostics,
+        before its `chunk_epilogue`: each pose relative to the carry's
+        reference keyframe at the chunk's end, so that `trajectory_tcw(
+        corrected=True)` follows later corrections of that keyframe."""
+        poses = diag["pose"].cpu()
+        ref = int(st.ts.ref_kf)
+        t_rw_inv = lie.se3_inverse(st.m.kf_pose[ref].cpu())
+        t_cr = lie.se3_compose(poses, t_rw_inv[None]).numpy()
+        cols = {k: diag[k].cpu().tolist() for k in ("n_inliers",
+                                                    "kf_inserted",
+                                                    "kf_trigger")}
+        for j, t in enumerate(timestamps):
+            self.trajectory.append(poses[j].numpy())
+            self.timestamps.append(float(t))
+            self._traj_refs.append((ref, t_cr[j]))
+            self.diags.append({k: int(v[j]) for k, v in cols.items()})
+
+    def _on_keyframe(self, slot: int) -> None:
+        """Keyframe-rate mapping: a finished GBA merged first; monocular
+        point creation; culling, fusion, local BA, stat refresh, object
+        merge; point compaction; loop closing; keyframe compaction."""
+        self._poll_gba()
+        if self.cfg.sensor == "mono" and self.n_keyframes >= 2:
+            # monocular landmarks by epipolar triangulation
+            self.map = local_mapping.create_points_mono(self.map, slot,
+                                                        cfg=self.cfg)
         if self.n_keyframes >= 3:
             self.map = local_mapping.local_mapping_step(self.map, slot,
                                                         cfg=self.cfg)
@@ -416,11 +665,14 @@ class System:
                     kp_pt=self.map.kf_pt_idx[slot])
         self._maybe_compact_keyframes()
 
-    def _maybe_compact_points(self) -> bool:
+    def _maybe_compact_points(self, next_pt: Optional[int] = None) -> bool:
         """Point-slot compaction when the insertion cursor runs low:
         `next_pt` is append-only, so without it point creation would stop
-        at `max_pt` lifetime insertions."""
-        if int(self.map.next_pt) <= 0.9 * self.map.max_pt:
+        at `max_pt` lifetime insertions. `next_pt` is the cursor if the
+        caller has read it already."""
+        if next_pt is None:
+            next_pt = int(self.map.next_pt)
+        if next_pt <= 0.9 * self.map.max_pt:
             return False
         self.map, remap = ms.compact_points(self.map)
         self.n_pt_compactions += 1
@@ -443,20 +695,25 @@ class System:
         self._last_fo = None
         return True
 
-    def _maybe_compact_keyframes(self) -> bool:
+    def _maybe_compact_keyframes(self, next_kf: Optional[int] = None,
+                                 kf_valid: Optional[np.ndarray] = None
+                                 ) -> bool:
         """Keyframe-slot lifecycle: when insertion reaches 0.9 of the table,
         reclaim the slots that culling freed; if the table is full of live
         keyframes (exploration), first evict the ones least tied to the
         recent window. Lifetime keyframe insertions become unbounded. The
         map's own references are remapped by `compact_keyframes`; here the
         tracking reference, the trajectory references and the loop
-        closer's bow rows and keyframe ids follow. (The JAX System also
-        drops its pending batched loop detection, which belongs to the
-        steady chunked loop, not ported yet.)"""
+        closer's bow rows and keyframe ids follow. A pending chunk-boundary
+        detection holds the old slot ids, so it goes (those keyframes lose
+        one detection; compactions are episodic). `next_kf` and `kf_valid`
+        are the cursor and the mask if the caller has read them already."""
         m = self.map
-        if int(m.next_kf) < int(0.9 * m.max_kf):
+        if next_kf is None:
+            next_kf = int(m.next_kf)
+        if next_kf < int(0.9 * m.max_kf):
             return False
-        live = int(m.kf_valid.sum())
+        live = int(m.kf_valid.sum() if kf_valid is None else kf_valid.sum())
         if live > int(0.8 * m.max_kf):
             # a multiple of 8, as the JAX System buckets it
             n_evict = max(8, ((live - int(0.7 * m.max_kf) + 7) // 8) * 8)
@@ -469,6 +726,8 @@ class System:
         kf_pose_old = m.kf_pose.cpu()
         self.map, remap = ms.compact_keyframes(m)
         remap_h = remap.cpu().numpy()
+        self._last_kf_remap = remap_h
+        self._pending_detect = None
         self.n_kf_compactions += 1
         self.events.append({"frame_id": self.frame_id,
                             "event": "kf_compaction",

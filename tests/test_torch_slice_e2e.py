@@ -1,8 +1,8 @@
 """The whole slice against the JAX package: RGBD tracking with
 keyframe-rate local BA over the 20-frame seed-0 arc (small config; objects
 and loop closing off, planes off and on), the port's System on the CPU
-beside the JAX System on the same frames; and which options the port
-accepts."""
+beside the JAX System on the same frames; which options the port
+accepts, and where it routes frames without depth."""
 
 import numpy as np
 import pytest
@@ -105,13 +105,12 @@ def test_device_defaults_to_the_card(monkeypatch):
         System(_tcfg())
 
 
-@pytest.mark.parametrize("flag", ["sensor"])
+@pytest.mark.parametrize("flag", ["gba_mesh_devices"])
 def test_unported_options_raise(flag):
-    """Only monocular and stereo input remain unported: a config with
-    another sensor than RGBD raises."""
-    for sensor in ("mono", "stereo"):
-        with pytest.raises(NotImplementedError, match=flag):
-            System(_tcfg(**{flag: sensor}), device="cpu")
+    """Only the distributed layer remains unported: a global BA over a
+    device mesh raises."""
+    with pytest.raises(NotImplementedError, match="distributed"):
+        System(_tcfg(use_loop_closing=True, **{flag: 2}), device="cpu")
 
 
 @pytest.mark.parametrize("flag", ["use_objects", "semantic_online",
@@ -158,13 +157,37 @@ def test_missing_detector_weights_raise(monkeypatch, tmp_path):
         System(_tcfg(semantic_online=True), device="cpu")
 
 
-def test_mono_and_stereo_input_raise():
-    s = System(_tcfg(), device="cpu")
-    gray = np.zeros((480, 640), np.float32)
-    with pytest.raises(NotImplementedError):
-        s.process_frame(gray, None)
-    with pytest.raises(NotImplementedError):
-        s.process_frame(gray, gray, right=gray)
+def test_input_without_depth_takes_the_mono_path():
+    """Monocular input is ported: under `sensor="mono"`, and for a frame
+    without depth or right image under the RGBD sensor, the frame goes to
+    two-view initialization, which holds it as the reference frame: the
+    System stays UNINIT at the identity with an empty map."""
+    seq = synthetic.generate_sequence(n_frames=3, seed=0, style="arc",
+                                      cache_dir=synthetic.DEFAULT_CACHE)
+    f = seq.frames[0]
+    # the mono sensor takes the mono path even where depth is given
+    for cfg, depth in ((_tcfg(sensor="mono"), f.depth), (_tcfg(), None)):
+        s = System(cfg, device="cpu")
+        pose = s.process_frame(f.gray, depth, f.timestamp)
+        np.testing.assert_array_equal(pose, [1, 0, 0, 0, 0, 0, 0])
+        assert int(s.track.status) == 0 and s._mono_ref is not None
+        assert s.n_keyframes == 0 and int(s.map.next_pt) == 0
+
+
+def test_right_image_takes_the_stereo_path():
+    """Stereo input is ported: a frame with a right image and no depth is
+    matched left to right and initializes the map from the stereo depths,
+    as RGBD initializes from the depth image."""
+    seq = synthetic.generate_sequence(n_frames=16, seed=0, style="arc",
+                                      cache_dir=synthetic.DEFAULT_CACHE)
+    right = synthetic.render_right_images(seq, seed=0,
+                                          cache_dir=synthetic.DEFAULT_CACHE)
+    s = System(_tcfg(sensor="stereo"), device="cpu")
+    s.process_frame(seq.frames[0].gray, right=right[0], timestamp=0.0)
+    assert int(s.track.status) == 1 and s.n_keyframes == 1
+    n_pts = int(s.map.next_pt)
+    assert n_pts >= 150
+    assert (s.map.kf_kp_uright[0][s.map.kf_pt_idx[0] >= 0] >= 0).all()
 
 
 def test_planes_option_is_ported():
