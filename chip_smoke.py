@@ -78,12 +78,35 @@ Phases (any failure exits non-zero and prints no result line):
  16. stereo input with the port's own right renders: frame 0's stereo
      depths (tests/test_stereo.py:27-45) and stereo tracking over the arc
      (ATE < 5 cm, >= 2 keyframes);
- 17. one JSON line with every kernel's numbers (launches from phase 7),
+ 17. I/O and the CLI: the port's dataset writer puts the 20-frame arc on
+     disk (PNGs of its own encoder, box files, ground truth, the
+     accelerometer); the native frame loader is built and decodes an RGB
+     and a depth PNG to exactly the arrays written; then the port's CLI
+     (`eao_fusion_tpu_torch.apps.run_tum.main`) runs three times
+     in-process on the card with `tum_fr3_config()`: (a) with every
+     output and a checkpoint (ATE < 1.5 cm, every file parses back),
+     (b) resumed from that checkpoint in localization-only mode over the
+     same frames (no keyframe, every map tensor bit-identical to the
+     checkpoint, ATE < 3 cm), (c) gravity-aligned from the
+     accelerometer file and in chunks of 6 (the first pose's world z
+     along the measured acceleration within 1e-5, > 30 inliers a frame,
+     >= 2 keyframes in the chunks, aligned ATE < 5 cm); each run's fps
+     beside the objects cell's;
+ 18. detector training: width 0.25, batch 8, on two class-textured
+     scenes (phase 10's 24-frame arc and 8 frames of the second training
+     scene): three steps on the card and on the CPU from the same
+     parameters and draws (loss within 1e-4 relative, parameters within
+     0.05 of the steps' summed learning rate), 200 steps on the card
+     (the mean loss of the last 20 at most half that of the first 20;
+     the median ms per step after step 20 and the peak memory), and
+     `evaluate` with the shipped weights on phase 10's six frames, the
+     same recall and class accuracy on the card as on the CPU;
+ 19. one JSON line with every kernel's numbers (launches from phase 7),
      the `nvidia-smi` line, and as the last line {"ok": true, "device":
      {...}}.
-Phases 6-9, 11-13 and 14-16 each set the launch counts to 0 just before
-they drive the System (in 14 and 14b: the chunks) and read them just
-after; each holds K1 to two launches per tracked frame plus one per
+Phases 6-9, 11-13 and 14-17 each set the launch counts to 0 just before
+they drive the System (in 14 and 14b: the chunks; in 17: each CLI run)
+and read them just after; each holds K1 to two launches per tracked frame plus one per
 relocalization pose solve and K4 to K2's count. No phase falls back to the
 CPU or to random weights, and a failure of the GBA thread fails the run.
 
@@ -98,6 +121,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1936,6 +1960,280 @@ def phase_stereo():
     return summary
 
 
+# -------------------------------------------------------------- I/O, CLI
+
+def _cli_run(argv, tag):
+    """`run_tum.main(argv)` on the card, the launch counts set to 0 just
+    before and read just after; returns the System, the counts and the
+    run's summary record from its JSONL log (the last argv pair)."""
+    import torch
+    from eao_fusion_tpu_torch import kernels
+    from eao_fusion_tpu_torch.apps import run_tum
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    s = run_tum.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = dict(kernels.launches)
+    if s.device.type != "cuda":
+        raise AssertionError(f"the CLI ran on {s.device}, not on the card")
+    log_path = argv[argv.index("--log-jsonl") + 1]
+    with open(log_path) as fh:
+        recs = [json.loads(line) for line in fh]
+    summary = recs[-1]
+    if summary.get("event") != "summary":
+        raise AssertionError(f"{tag}: the JSONL log has no summary")
+    log(f"CLI {tag}: {summary['frames']} frames in {summary['seconds']:.2f}"
+        f" s ({summary['fps_after_first']:.2f} fps after the first two), "
+        f"{wall:.2f} s with set-up and outputs; launches {counts}")
+    return s, counts, summary, recs
+
+
+def phase_cli(objects_summary):
+    """The port's dataset writer, native frame loader and CLI on the card,
+    `tum_fr3_config()` at full width over the seed-0 20-frame arc on disk
+    (the bounds are tests/test_tracking_e2e.py:72 and :90-119,
+    tests/test_aux.py:58-64, tests/test_steady.py:46-54)."""
+    import tempfile
+    import torch
+    from eao_fusion_tpu_torch.config import tum_fr3_config
+    from eao_fusion_tpu_torch.io import native_loader, tum
+    from eao_fusion_tpu_torch.ops import lie
+    from eao_fusion_tpu_torch.tools.make_tum_dataset import write_dataset
+    from eao_fusion_tpu_torch.types import to_numpy
+    cfg = tum_fr3_config()
+    seq = _arc(N_FRAMES, cfg)
+    t = time.perf_counter()
+    lib = native_loader.build()
+    log(f"native frame loader {lib.name} ready in "
+        f"{time.perf_counter() - t:.1f} s")
+    gt = seq.gt_tcw()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = os.path.join(tmp, "ds")
+        t = time.perf_counter()
+        write_dataset(ds, seq)
+        log(f"dataset of {N_FRAMES} frames written in "
+            f"{time.perf_counter() - t:.2f} s (host)")
+        f = seq.frames[3]
+        ts = f"{f.timestamp:.6f}"
+        g8 = np.clip(np.round(f.gray * 255), 0, 255).astype(np.uint8)
+        d16 = np.clip(np.round(f.depth * 5000.0), 0, 65535).astype(np.uint16)
+        for name, want in ((f"rgb/{ts}.png", np.stack([g8] * 3, -1)),
+                           (f"depth/{ts}.png", d16)):
+            with open(os.path.join(ds, name), "rb") as fh:
+                got, _, _ = native_loader.decode_png(fh.read())
+            if not (got.dtype == want.dtype and np.array_equal(got, want)):
+                raise AssertionError(f"{name} does not decode to the "
+                                     f"array written")
+        log("an RGB and a depth PNG decode to exactly the arrays written")
+
+        def p(name):
+            return os.path.join(tmp, name)
+        base = [ds, "--boxes", os.path.join(ds, "boxes")]
+        gt_arg = ["--gt", os.path.join(ds, "groundtruth.txt")]
+
+        # (a) every output, and a checkpoint
+        s, counts, summ, recs = _cli_run(
+            base + gt_arg + ["--out", p("a.txt"), "--kitti", p("a.kitti"),
+                             "--kf-out", p("a_kf.txt"), "--checkpoint",
+                             p("a.npz"), "--log-jsonl", p("a.jsonl")], "(a)")
+        ts_a, twc = tum.read_groundtruth(p("a.txt"))
+        est = lie.se3_inverse(torch.from_numpy(twc)).numpy()
+        ate = tum.evaluate_ate_rpe(est, gt).ate_rmse * 100.0
+        kitti = np.loadtxt(p("a.kitti"))
+        kf_ts, _ = tum.read_groundtruth(p("a_kf.txt"))
+        with np.load(p("a.npz")) as z:
+            ckpt_map = {k[4:]: z[k] for k in z.files if k.startswith("map.")}
+            meta = json.loads(bytes(z["meta"]).decode())
+        n_frame_recs = sum("frame" in r for r in recs)
+        log(f"CLI (a): ATE {ate:.4f} cm (< 1.5) from the written TUM file; "
+            f"{len(ts_a)} poses, KITTI {kitti.shape}, {len(kf_ts)} keyframe "
+            f"poses, {n_frame_recs} frame records, checkpoint of "
+            f"{len(ckpt_map)} map fields at frame {meta['frame_id']}")
+        if not (len(ts_a) == N_FRAMES and kitti.shape == (N_FRAMES, 12)
+                and np.allclose(kitti[:, [3, 7, 11]], twc[:, 4:], atol=1e-5)
+                and len(kf_ts) == int(s.map.kf_valid.sum())
+                and n_frame_recs == len(s.diags)
+                and meta["frame_id"] == N_FRAMES):
+            raise AssertionError("CLI (a): an output does not parse back")
+        if not ate < 1.5:
+            raise AssertionError(f"CLI (a): ATE {ate:.3f} cm >= 1.5 cm")
+        _check_launches(counts, len(s.diags),
+                        s.reloc_stats.get("pose_solves", 0))
+        out["a"] = dict(ate_cm=ate, fps=summ["fps_after_first"],
+                        keyframes=s.n_keyframes, launches=counts)
+        n_kf = s.n_keyframes
+
+        # (b) the checkpoint resumed, localization only, the same frames
+        s, counts, summ, _ = _cli_run(
+            base + gt_arg + ["--out", p("b.txt"), "--resume", p("a.npz"),
+                             "--localization-only", "--log-jsonl",
+                             p("b.jsonl")], "(b)")
+        changed = [k for k, v in s.map._asdict().items()
+                   if not np.array_equal(to_numpy(v), ckpt_map[k])]
+        ate = tum.evaluate_ate_rpe(s.trajectory_tcw()[N_FRAMES:],
+                                   gt).ate_rmse * 100.0
+        solves = s.reloc_stats.get("pose_solves", 0)
+        log(f"CLI (b): {s.n_keyframes} keyframes (resumed {n_kf}), map "
+            f"fields changed: {changed}, ATE of the localized frames "
+            f"{ate:.4f} cm (< 3), relocalizations {s.n_relocalizations}")
+        if changed or s.n_keyframes != n_kf:
+            raise AssertionError("CLI (b): localization changed the map")
+        if not ate < 3.0:
+            raise AssertionError(f"CLI (b): ATE {ate:.3f} cm >= 3 cm")
+        if (counts["pose_opt"] != 2 * len(s.diags) + solves
+                or counts["chol_solve"] != counts["ba_edge_full"]):
+            raise AssertionError(f"CLI (b): launch counts {counts}")
+        out["b"] = dict(ate_cm=ate, fps=summ["fps_after_first"],
+                        relocalizations=s.n_relocalizations,
+                        launches=counts)
+
+        # (c) gravity-aligned from the accelerometer, in chunks of 6
+        accel = os.path.join(ds, "accelerometer.txt")
+        s, counts, summ, recs = _cli_run(
+            base + ["--imu", accel, "--chunk", "6", "--out", p("c.txt"),
+                    "--log-jsonl", p("c.jsonl")], "(c)")
+        a = tum.read_accelerometer(accel)[0].accel
+        R = lie.quat_to_rotmat(torch.from_numpy(s.trajectory[0][:4])).numpy()
+        z_err = float(np.abs(R[:, 2] - a / np.linalg.norm(a)).max())
+        chunk_recs = [r for r in recs if "kf_inserted" in r]
+        ninl = [r["n_inliers"] for r in recs if "frame" in r]
+        kfi = sum(r["kf_inserted"] for r in chunk_recs)
+        ate = tum.evaluate_ate_rpe(s.trajectory_tcw(),
+                                   gt).ate_rmse * 100.0
+        log(f"CLI (c): world z against the measured acceleration "
+            f"{z_err:.2e} (< 1e-5); {len(chunk_recs)} frames in chunks, "
+            f"{kfi} keyframes there (>= 2), inliers min {min(ninl)} (> 30); "
+            f"aligned ATE {ate:.4f} cm (< 5)")
+        if not z_err < 1e-5:
+            raise AssertionError("CLI (c): the world is not gravity-aligned")
+        if not (min(ninl) > 30 and kfi >= 2 and len(chunk_recs) >= 6
+                and ate < 5.0):
+            raise AssertionError("CLI (c): the chunked run is off")
+        _check_launches(counts, len(s.diags),
+                        s.reloc_stats.get("pose_solves", 0))
+        out["c"] = dict(ate_cm=ate, fps=summ["fps_after_first"],
+                        chunk_frames=len(chunk_recs), launches=counts)
+    log("CLI fps after the first two frames (a) / (b) / (c): "
+        + " / ".join(f"{out[k]['fps']:.2f}" for k in "abc")
+        + f"; the in-memory objects cell in this run: "
+        f"{objects_summary['fps_after_first']:.2f}")
+    return out
+
+
+# ---------------------------------------------------------------- training
+
+TRAIN_STEPS = 200
+TRAIN_BATCH = 8
+TRAIN_WIDTH = 0.25
+# parameters after three steps, card against CPU, in units of the steps'
+# summed learning rate (Adam's normalized update is about lr per weight)
+TRAIN_PARAM_TOL_LR = 0.05
+
+
+def phase_training():
+    """Detector training on the card (frontend/yolox_train.py): three
+    steps against the CPU on the same parameters and draws, 200 steps that
+    must halve the loss, and `evaluate` with the shipped weights on the
+    card against the CPU."""
+    import torch
+    from eao_fusion_tpu_torch.config import tum_fr3_config
+    from eao_fusion_tpu_torch.frontend import yolox
+    from eao_fusion_tpu_torch.frontend import yolox_train as YT
+    from eao_fusion_tpu_torch.pipeline.system import REPO_ROOT
+    from eao_fusion_tpu_torch.tools.train_yolox import TRAIN_SPECS, render
+    t = time.perf_counter()
+    seqs = [_arc(24, tum_fr3_config(), class_textures=True),
+            render(TRAIN_SPECS[1], 8)]
+    data_h = YT.build_dataset(seqs, 8)
+    n_img = data_h["gray"].shape[0]
+    log(f"training set: {n_img} images from 2 scenes, "
+        f"{time.perf_counter() - t:.1f} s (host)")
+    dev = torch.device("cuda")
+    init = yolox.params_to_numpy(yolox.init_params(
+        torch.Generator().manual_seed(0), width_mult=TRAIN_WIDTH,
+        n_classes=8, device="cpu"))
+    g = torch.Generator().manual_seed(1)
+    draws = [YT.draw_batch(g, n_img, TRAIN_BATCH) for _ in range(3)]
+    runs = {}
+    for d in ("cpu", "cuda"):
+        params = yolox.params_from_numpy(init, d)
+        opt, sched = YT.make_optimizer(params, TRAIN_STEPS)
+        data = YT.dataset_to_device(data_h, torch.device(d))
+        losses = [float(YT.train_step(params, opt, sched, data,
+                                      {k: v.to(d) for k, v in dr.items()})[0])
+                  for dr in draws]
+        runs[d] = (losses, yolox.params_to_numpy(params))
+    loss_rel = max(abs(a / b - 1) for a, b in zip(runs["cuda"][0],
+                                                  runs["cpu"][0]))
+    lr = YT.lr_schedule(TRAIN_STEPS)
+    lr_sum = sum(lr(k) for k in range(3))
+    pc, pg = _flat_np(runs["cpu"][1]), _flat_np(runs["cuda"][1])
+    p_err = max(float(np.abs(pg[k] - pc[k]).max()) for k in pc)
+    log(f"three train steps, card against CPU: losses "
+        f"{[round(x, 4) for x in runs['cuda'][0]]} / "
+        f"{[round(x, 4) for x in runs['cpu'][0]]}, max relative "
+        f"{loss_rel:.2e} (< 1e-4); parameters max |diff| {p_err:.3e} = "
+        f"{p_err / lr_sum:.3e} of the summed learning rate {lr_sum:.3e} "
+        f"(< {TRAIN_PARAM_TOL_LR})")
+    if not (loss_rel < 1e-4 and p_err <= TRAIN_PARAM_TOL_LR * lr_sum):
+        raise AssertionError("train steps on the card differ from the CPU")
+
+    # 200 steps on the card
+    data = YT.dataset_to_device(data_h, dev)
+    params = yolox.params_from_numpy(init, dev)
+    opt, sched = YT.make_optimizer(params, TRAIN_STEPS)
+    gd = torch.Generator(device=dev).manual_seed(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        loss, _ = YT.train_step(params, opt, sched, data,
+                                YT.draw_batch(gd, n_img, TRAIN_BATCH))
+        losses.append(float(loss))            # waits for the step
+        ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    step_ms = float(np.median(ms[20:]))
+    log(f"training on the card: {TRAIN_STEPS} steps, width {TRAIN_WIDTH}, "
+        f"batch {TRAIN_BATCH}, 640x640: mean loss of the first 20 "
+        f"{first:.3f}, of the last 20 {last:.3f} (<= half); median "
+        f"{step_ms:.2f} ms a step after step 20; peak memory {peak:.0f} MiB")
+    if not last <= 0.5 * first:
+        raise AssertionError("the loss did not halve in 200 steps")
+
+    # evaluate with the shipped weights, card against CPU
+    path = f"{REPO_ROOT}/data/yolox_synth.npz"
+    seq = seqs[0]
+    grays = [seq.frames[i].gray for i in DETECTOR_FRAMES]
+    boxes = [seq.frames[i].boxes for i in DETECTOR_FRAMES]
+    m = {}
+    for d in ("cpu", "cuda"):
+        pw = yolox.load_params(path, d)
+        dm, nc = yolox.infer_arch(pw)
+        m[d] = YT.evaluate(pw, dm, nc, grays, boxes)
+    log(f"evaluate, shipped weights, six frames: card {m['cuda']}, CPU "
+        f"{m['cpu']}")
+    if m["cuda"] != m["cpu"]:
+        raise AssertionError("evaluate differs between the card and the CPU")
+    return dict(step_ms=step_ms, peak_mib=peak, loss_first=first,
+                loss_last=last, loss_rel=loss_rel,
+                param_err_over_lr=p_err / lr_sum, eval=m["cuda"])
+
+
+def _flat_np(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_np(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
 CAM = (535.4, 539.2, 320.1, 247.6, 40.0)
 
 
@@ -1991,6 +2289,8 @@ def main() -> int:
         phase_loop_chunks()
         phase_mono()
         phase_stereo()
+        phase_cli(obj_summary)
+        phase_training()
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -1,5 +1,6 @@
-"""YOLOX object detector, the serving half (port of
-`eao_fusion_tpu/frontend/yolox.py`).
+"""YOLOX object detector (port of `eao_fusion_tpu/frontend/yolox.py`): the
+graph, pre / post processing, the serving lane, and the weights (random
+init, the npz layout, the importer of the official checkpoint).
 
 The same YOLOX-s graph (CSPDarknet backbone, PAFPN neck, decoupled
 anchor-free head, strides {8, 16, 32}) and the same pre/post processing as
@@ -11,7 +12,8 @@ top-k candidate set instead of dynamic lists.
 Layout: NCHW activations and OIHW weights, as plain functions on a nested
 parameter dict (the JAX package's tree with the same keys).
 `params_from_numpy` turns the JAX package's HWIO numpy tree (the npz layout
-of its `save_params`) into this one; `load_params` reads such an npz. The
+of its `save_params`) into this one and `params_to_numpy` back;
+`load_params` / `save_params` read and write such an npz. The
 convolutions are `torch.nn.functional.conv2d`: the JAX package computes
 them with `lax.conv_general_dilated`, outside any Pallas kernel.
 
@@ -96,6 +98,13 @@ def yolox_forward(params: Params, img: torch.Tensor, depth_mult: int = 1
     """img: [1, 3, 640, 640] normalized. Returns the raw head outputs as
     [n_anchors, 5 + n_classes] (pre-decode), anchors in the JAX package's
     order (stride 8, 16, 32; row-major within each)."""
+    return yolox_forward_batch(params, img, depth_mult)[0]
+
+
+def yolox_forward_batch(params: Params, img: torch.Tensor,
+                        depth_mult: int = 1) -> torch.Tensor:
+    """`yolox_forward` over a batch: img [B, 3, 640, 640] -> raw head
+    outputs [B, n_anchors, 5 + n_classes]."""
     n = depth_mult
     # backbone (CSPDarknet)
     x = _focus(params["stem"], img)                       # /2
@@ -132,8 +141,9 @@ def yolox_forward(params: Params, img: torch.Tensor, depth_mult: int = 1
         reg = _conv(hp["reg2"], _conv(hp["reg1"], s))
         o = torch.cat([_conv_linear(hp["reg_pred"], reg),
                        _conv_linear(hp["obj_pred"], reg), cls_out], dim=1)
-        outs.append(o[0].permute(1, 2, 0).reshape(-1, o.shape[1]))
-    return torch.cat(outs, dim=0)
+        outs.append(o.permute(0, 2, 3, 1).reshape(o.shape[0], -1,
+                                                  o.shape[1]))
+    return torch.cat(outs, dim=1)
 
 
 def forward_flops(params: Params, depth_mult: int = 1,
@@ -328,6 +338,69 @@ class Detector:
 
 # ------------------------------------------------------------------ weights
 
+def init_params(generator: torch.Generator, depth_mult: int = 1,
+                width_mult: float = 0.5, n_classes: int = 80,
+                device: DeviceLike = None) -> Params:
+    """Random init with YOLOX-s dimensions (width 0.5, depth 0.33 -> n = 1)
+    on `device` (`cuda` unless named): each conv weight N(0, 1 /
+    (cin k k)), drawn from `generator` on its own device, biases zero. The
+    JAX package draws from `jax.random`, whose bits no torch generator
+    gives: a test carries its parameters across with `params_from_numpy`."""
+    device = resolve_device(device)
+    wb = int(64 * width_mult)
+
+    def conv(cin, cout, k=3):
+        w = torch.randn((cout, cin, k, k), generator=generator,
+                        device=generator.device) / float(np.sqrt(cin * k * k))
+        return {"w": w.to(device),
+                "b": torch.zeros(cout, device=device)}
+
+    def csp(cin, cout, n, expand=0.5):
+        hid = int(cout * expand)
+        d = {"c1": conv(cin, hid, 1), "c2": conv(cin, hid, 1),
+             "c3": conv(2 * hid, cout, 1)}
+        for i in range(n):
+            d[f"m{i}"] = {"c1": conv(hid, hid, 1), "c2": conv(hid, hid, 3)}
+        return d
+
+    n = depth_mult
+    p: Params = {}
+    p["stem"] = {"conv": conv(12, wb, 3)}
+    p["dark2_down"] = conv(wb, 2 * wb, 3)
+    p["dark2_csp"] = csp(2 * wb, 2 * wb, n)
+    p["dark3_down"] = conv(2 * wb, 4 * wb, 3)
+    p["dark3_csp"] = csp(4 * wb, 4 * wb, 3 * n)
+    p["dark4_down"] = conv(4 * wb, 8 * wb, 3)
+    p["dark4_csp"] = csp(8 * wb, 8 * wb, 3 * n)
+    p["dark5_down"] = conv(8 * wb, 16 * wb, 3)
+    p["sppf"] = {"c1": conv(16 * wb, 8 * wb, 1),
+                 "c2": conv(32 * wb, 16 * wb, 1)}
+    p["dark5_csp"] = csp(16 * wb, 16 * wb, n)
+
+    p["lateral5"] = conv(16 * wb, 8 * wb, 1)
+    p["fpn4"] = csp(16 * wb, 8 * wb, n)
+    p["lateral4"] = conv(8 * wb, 4 * wb, 1)
+    p["fpn3"] = csp(8 * wb, 4 * wb, n)
+    p["down3"] = conv(4 * wb, 4 * wb, 3)
+    p["pan4"] = csp(8 * wb, 8 * wb, n)
+    p["down4"] = conv(8 * wb, 8 * wb, 3)
+    p["pan5"] = csp(16 * wb, 16 * wb, n)
+
+    for name, cin in (("head8", 4 * wb), ("head16", 8 * wb),
+                      ("head32", 16 * wb)):
+        p[name] = {
+            "stem": conv(cin, 4 * wb, 1),
+            "cls1": conv(4 * wb, 4 * wb, 3),
+            "cls2": conv(4 * wb, 4 * wb, 3),
+            "cls_pred": conv(4 * wb, n_classes, 1),
+            "reg1": conv(4 * wb, 4 * wb, 3),
+            "reg2": conv(4 * wb, 4 * wb, 3),
+            "reg_pred": conv(4 * wb, 4, 1),
+            "obj_pred": conv(4 * wb, 1, 1),
+        }
+    return p
+
+
 def params_from_numpy(tree: Dict, device: DeviceLike = None) -> Params:
     """The JAX package's parameter tree (nested dicts of numpy arrays, conv
     weights HWIO, as its `save_params` writes them) as this module's tree:
@@ -343,6 +416,35 @@ def params_from_numpy(tree: Dict, device: DeviceLike = None) -> Params:
             a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
         out[k] = torch.from_numpy(a).to(device)
     return out
+
+
+def params_to_numpy(params: Params) -> Dict:
+    """The inverse of `params_from_numpy`: nested dicts of float32 numpy
+    arrays on the host, conv weights HWIO."""
+    out: Dict = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out[k] = params_to_numpy(v)
+            continue
+        a = v.detach().cpu().numpy()
+        out[k] = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
+    return out
+
+
+def save_params(path: str, params: Params, dtype=None) -> None:
+    """Write the JAX package's npz layout (keys "a.b.w", HWIO).
+    `dtype=np.float16` halves the file; the weights are cast back to
+    float32 on load."""
+    flat = {}
+
+    def rec(prefix, d):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                rec(f"{prefix}{k}.", v)
+            else:
+                flat[f"{prefix}{k}"] = v.astype(dtype) if dtype else v
+    rec("", params_to_numpy(params))
+    np.savez_compressed(path, **flat)
 
 
 def load_params(path: str, device: DeviceLike = None) -> Params:
@@ -364,3 +466,122 @@ def infer_arch(params: Params) -> Tuple[int, int]:
     n_classes = int(params["head8"]["cls_pred"]["w"].shape[0])
     n_m = len([k for k in params["dark3_csp"] if k.startswith("m")])
     return max(n_m // 3, 1), n_classes
+
+
+# ------------------------------------------------- torch checkpoint import
+
+# this module's name -> module path in the official YOLOX layout (Megvii
+# YOLOX: YOLOX = {backbone: YOLOPAFPN{backbone: CSPDarknet, ...}, head:
+# YOLOXHead}; the reference serializes this graph into its TensorRT engine,
+# `src/YOLOX.cc:7-41`)
+_TORCH_MAP = {
+    "stem.conv": "backbone.backbone.stem.conv",
+    "dark2_down": "backbone.backbone.dark2.0",
+    "dark2_csp": "backbone.backbone.dark2.1",
+    "dark3_down": "backbone.backbone.dark3.0",
+    "dark3_csp": "backbone.backbone.dark3.1",
+    "dark4_down": "backbone.backbone.dark4.0",
+    "dark4_csp": "backbone.backbone.dark4.1",
+    "dark5_down": "backbone.backbone.dark5.0",
+    "sppf.c1": "backbone.backbone.dark5.1.conv1",
+    "sppf.c2": "backbone.backbone.dark5.1.conv2",
+    "dark5_csp": "backbone.backbone.dark5.2",
+    "lateral5": "backbone.lateral_conv0",
+    "fpn4": "backbone.C3_p4",
+    "lateral4": "backbone.reduce_conv1",
+    "fpn3": "backbone.C3_p3",
+    "down3": "backbone.bu_conv2",
+    "pan4": "backbone.C3_n3",
+    "down4": "backbone.bu_conv1",
+    "pan5": "backbone.C3_n4",
+}
+for _i, _h in enumerate(("head8", "head16", "head32")):
+    _TORCH_MAP.update({
+        f"{_h}.stem": f"head.stems.{_i}",
+        f"{_h}.cls1": f"head.cls_convs.{_i}.0",
+        f"{_h}.cls2": f"head.cls_convs.{_i}.1",
+        f"{_h}.cls_pred": f"head.cls_preds.{_i}",
+        f"{_h}.reg1": f"head.reg_convs.{_i}.0",
+        f"{_h}.reg2": f"head.reg_convs.{_i}.1",
+        f"{_h}.reg_pred": f"head.reg_preds.{_i}",
+        f"{_h}.obj_pred": f"head.obj_preds.{_i}",
+    })
+_CSP = ("dark2_csp", "dark3_csp", "dark4_csp", "dark5_csp", "fpn3", "fpn4",
+        "pan4", "pan5")
+_CSP_SUB = {"c1": "conv1", "c2": "conv2", "c3": "conv3"}
+_PLAIN_CONVS = ("cls_pred", "reg_pred", "obj_pred")  # bias, no BN
+_BN_EPS = 1e-3   # YOLOX builds BatchNorm2d(eps=0.001, momentum=0.03)
+
+
+def fold_conv_bn(w_oihw: np.ndarray, gamma, beta, mean, var,
+                 eps: float = _BN_EPS) -> Tuple[np.ndarray, np.ndarray]:
+    """Fold BatchNorm into the conv before it: y = BN(conv(x)) becomes one
+    conv with w' = w gamma / sqrt(var + eps) per output channel and b' =
+    beta - mean gamma / sqrt(var + eps). Returns (w' OIHW, b') as
+    float32."""
+    scale = gamma / np.sqrt(var + eps)
+    w = w_oihw * scale[:, None, None, None]
+    b = beta - mean * scale
+    return w.astype(np.float32), b.astype(np.float32)
+
+
+def convert_torch_state_dict(sd: Dict, n_classes: int = 80) -> Params:
+    """An official YOLOX state dict (torch tensors or numpy arrays) as this
+    module's tree of float32 CPU tensors (OIHW), every BatchNorm folded
+    into its conv. `n_classes` is read from the class heads' shapes; the
+    argument mirrors the JAX function's."""
+    def arr(key):
+        v = sd[key]
+        return (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v))
+
+    def base_conv(tpath):
+        return fold_conv_bn(arr(f"{tpath}.conv.weight"),
+                            arr(f"{tpath}.bn.weight"),
+                            arr(f"{tpath}.bn.bias"),
+                            arr(f"{tpath}.bn.running_mean"),
+                            arr(f"{tpath}.bn.running_var"))
+
+    def plain_conv(tpath):
+        return (arr(f"{tpath}.weight").astype(np.float32),
+                arr(f"{tpath}.bias").astype(np.float32))
+
+    # strip a DataParallel "module." prefix
+    if any(k.startswith("module.") for k in sd):
+        sd = {k[len("module."):]: v for k, v in sd.items()}
+
+    params: Params = {}
+
+    def put(ours, w, b):
+        parts = ours.split(".")
+        d = params
+        for part in parts[:-1]:
+            d = d.setdefault(part, {})
+        d[parts[-1]] = {"w": torch.from_numpy(np.ascontiguousarray(w)),
+                        "b": torch.from_numpy(np.ascontiguousarray(b))}
+
+    for ours, tpath in _TORCH_MAP.items():
+        if ours in _CSP:
+            for sub, tsub in _CSP_SUB.items():
+                put(f"{ours}.{sub}", *base_conv(f"{tpath}.{tsub}"))
+            i = 0
+            while f"{tpath}.m.{i}.conv1.conv.weight" in sd:
+                put(f"{ours}.m{i}.c1", *base_conv(f"{tpath}.m.{i}.conv1"))
+                put(f"{ours}.m{i}.c2", *base_conv(f"{tpath}.m.{i}.conv2"))
+                i += 1
+        elif ours.split(".")[-1] in _PLAIN_CONVS:
+            put(ours, *plain_conv(tpath))
+        else:
+            put(ours, *base_conv(tpath))
+    return params
+
+
+def convert_torch_checkpoint(pth_path: str, out_path: str) -> None:
+    """Convert an official YOLOX checkpoint (e.g. yolox_s.pth: a dict with
+    the state dict under "model") into the npz layout of `save_params`,
+    BatchNorm folded into the convs. Offline, on the CPU; the file is
+    read with `torch.load(weights_only=True)`, which takes tensors and
+    plain containers and runs no pickled code."""
+    ckpt = torch.load(pth_path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
+    save_params(out_path, convert_torch_state_dict(sd))

@@ -1,1 +1,2 @@
-"""Synthetic sequences and trajectory evaluation."""
+"""Dataset I/O: TUM files, IMU samples, checkpoints, the native frame
+loader, synthetic sequences, and trajectory evaluation."""

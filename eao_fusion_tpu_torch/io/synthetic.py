@@ -1,7 +1,7 @@
 """Synthetic RGBD scene generator (numpy copy of
-`eao_fusion_tpu/io/synthetic.py`: room scene, ray casting, trajectories,
-sequences, right-eye renders; the corridor scene and the nuisance model
-come later).
+`eao_fusion_tpu/io/synthetic.py`: room and corridor scenes, ray casting,
+trajectories, sequences, right-eye renders, and the sensor nuisance
+model).
 
 Plain numpy on the host; its quaternion math is the port's own
 (`ops/lie.py` on CPU tensors). Renders and caches are those of the JAX
@@ -191,6 +191,59 @@ def make_room_scene(seed: int = 0, n_objects: int = 4,
                               v(0, 3.2, 0), wall_tex))
         rects[0] = RectPrim(v(-3.0, 1.2, -1.5), v(6.0, 0, 0),
                             v(0, 0, 6.0), 0)   # floor extended backward
+    return Scene(rects, boxes, np.stack(textures))
+
+
+def make_corridor_scene(seed: int = 0, length_m: float = 15.0,
+                        segment_m: float = 3.0, half_width: float = 1.5,
+                        n_objects: int = 4) -> Scene:
+    """A long corridor along +z for exploratory (non-revisiting)
+    trajectories: floor and left / right wall segments every `segment_m`,
+    each with its own texture, so new wall area keeps giving fresh,
+    unambiguous features; boxes along the walls. The camera never
+    revisits, so keyframes are never redundant and lifetime insertions
+    exceed any fixed table size."""
+    r = np.random.default_rng(seed)
+    n_seg = int(np.ceil(length_m / segment_m)) + 1
+
+    def v(*a):
+        return np.array(a, np.float32)
+
+    textures = []
+    rects = []
+    for i in range(n_seg):
+        z0 = -1.0 + i * segment_m
+        for (origin, eu, ev) in (
+                # floor segment
+                (v(-half_width, 1.2, z0), v(2 * half_width, 0, 0),
+                 v(0, 0, segment_m)),
+                # left wall segment
+                (v(-half_width, -2.0, z0), v(0, 0, segment_m),
+                 v(0, 3.2, 0)),
+                # right wall segment
+                (v(half_width, -2.0, z0), v(0, 0, segment_m),
+                 v(0, 3.2, 0))):
+            tex_fn = _blocky_texture if (len(textures) % 2 == 0) \
+                else _voronoi_texture
+            textures.append(tex_fn(r))
+            rects.append(RectPrim(origin, eu, ev, len(textures) - 1))
+    # far end wall
+    textures.append(_voronoi_texture(r))
+    z_end = -1.0 + n_seg * segment_m
+    rects.append(RectPrim(v(-half_width, -2.0, z_end),
+                          v(2 * half_width, 0, 0), v(0, 3.2, 0),
+                          len(textures) - 1))
+    boxes = []
+    for i in range(n_objects):
+        cz = r.uniform(1.0, length_m - 1.0)
+        side = 1 if i % 2 == 0 else -1
+        w, h, d = r.uniform(0.3, 0.5, 3)
+        cx = side * (half_width - 0.4)
+        y_bottom = r.uniform(0.6, 0.95)
+        lo = v(cx - w / 2, y_bottom - h, cz - d / 2)
+        hi = v(cx + w / 2, y_bottom, cz + d / 2)
+        textures.append(_blocky_texture(r))
+        boxes.append(BoxPrim(lo, hi, len(textures) - 1, class_id=i % 8))
     return Scene(rects, boxes, np.stack(textures))
 
 
@@ -397,9 +450,13 @@ def generate_sequence(n_frames: int = 30, seed: int = 0, style: str = "arc",
            f"{tex_tag}{ct_tag}_{cam.width}x{cam.height}_f{cam.fx:.1f}.npz")
     path = os.path.join(cache_dir, key) if cache_dir else None
     if style == "corridor":
-        raise NotImplementedError("the corridor scene is not ported yet")
-    scene = make_room_scene(seed=seed, n_objects=n_objects, closed=closed,
-                            texture=texture, class_textures=class_textures)
+        scene = make_corridor_scene(seed=seed,
+                                    length_m=0.05 * n_frames + 4.0,
+                                    n_objects=n_objects)
+    else:
+        scene = make_room_scene(seed=seed, n_objects=n_objects,
+                                closed=closed, texture=texture,
+                                class_textures=class_textures)
     if path and os.path.exists(path):
         z = np.load(path, allow_pickle=True)
         # materialize each array once: indexing the lazy NpzFile per frame
@@ -431,6 +488,81 @@ def generate_sequence(n_frames: int = 30, seed: int = 0, style: str = "arc",
             payload["boxes_%d" % i] = f.boxes
         np.savez_compressed(path, **payload)
     return SyntheticSequence(frames=frames, camera=cam, scene=scene)
+
+
+def apply_nuisance(gray: np.ndarray, depth: np.ndarray,
+                   rng: np.random.Generator, *,
+                   shot_noise: float = 0.0, read_noise: float = 0.0,
+                   exposure: float = 1.0, blur_px: float = 0.0,
+                   depth_holes: float = 0.0, depth_quant: float = 0.0
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Photometric and depth sensor nuisance on top of a clean render (the
+    reference's workload is a real D435i, `ros_test/config/D435i.yaml`):
+
+      shot_noise   Poisson-approx: std = shot_noise * sqrt(signal)
+      read_noise   additive Gaussian std (dark floor)
+      exposure     multiplicative gain (the caller drifts it per frame)
+      blur_px      horizontal box motion blur of about that many pixels
+      depth_holes  fraction of depth dropped in speckle blobs (stereo
+                   dropouts on low-texture / oblique surfaces)
+      depth_quant  disparity-style quantization: the step grows as q z^2
+                   (the D435's error model), in metres at z = 1 m
+    """
+    g = gray.astype(np.float32)
+    if blur_px >= 2.0:
+        k = int(round(blur_px)) | 1
+        ker = np.ones(k, np.float32) / k
+        pad = k // 2
+        gp = np.pad(g, ((0, 0), (pad, pad)), mode="edge")
+        g = np.apply_along_axis(
+            lambda row: np.convolve(row, ker, mode="valid"), 1, gp)
+    g = g * exposure
+    if shot_noise > 0:
+        g = g + rng.normal(0.0, 1.0, g.shape) * shot_noise * np.sqrt(
+            np.clip(g, 0.0, None))
+    if read_noise > 0:
+        g = g + rng.normal(0.0, read_noise, g.shape)
+    g = np.clip(g, 0.0, 1.0).astype(np.float32)
+
+    z = depth.astype(np.float32)
+    if depth_quant > 0:
+        step = depth_quant * np.maximum(z, 1e-6) ** 2
+        z = np.where(z > 0, np.round(z / step) * step, z)
+    if depth_holes > 0:
+        H, W = z.shape
+        blob = rng.random((H // 8 + 1, W // 8 + 1))
+        blob = np.kron(blob, np.ones((8, 8)))[:H, :W]
+        z = np.where(blob < depth_holes, 0.0, z)
+    return g, z.astype(np.float32)
+
+
+#: named nuisance profiles of the robustness runs
+NUISANCE_PROFILES = {
+    "shot":     dict(shot_noise=0.04, read_noise=0.01),
+    "exposure": dict(),   # drift handled per frame by nuisance_sequence
+    "blur":     dict(blur_px=5.0),
+    "depth":    dict(depth_holes=0.15, depth_quant=0.0015),
+    "combo":    dict(shot_noise=0.03, read_noise=0.008, blur_px=3.0,
+                     depth_holes=0.10, depth_quant=0.0015),
+}
+
+
+def nuisance_sequence(seq: SyntheticSequence, profile: str,
+                      seed: int = 0) -> SyntheticSequence:
+    """A copy of `seq` with the named nuisance profile applied per frame;
+    `exposure` and `combo` add a sinusoidal exposure drift (+-25% over
+    about 40 frames: auto-exposure hunting)."""
+    kw = dict(NUISANCE_PROFILES[profile])
+    rng = np.random.default_rng(seed + 77)
+    drift = profile in ("exposure", "combo")
+    frames = []
+    for i, f in enumerate(seq.frames):
+        exp = 1.0 + (0.25 * np.sin(2 * np.pi * i / 40.0) if drift else 0.0)
+        g, z = apply_nuisance(f.gray, f.depth, rng, exposure=exp, **kw)
+        frames.append(SyntheticFrame(gray=g, depth=z, tcw=f.tcw,
+                                     timestamp=f.timestamp, boxes=f.boxes))
+    return SyntheticSequence(frames=frames, camera=seq.camera,
+                             scene=seq.scene)
 
 
 def render_right_images(seq: SyntheticSequence, seed: int = 0,
