@@ -101,14 +101,34 @@ Phases (any failure exits non-zero and prints no result line):
      the median ms per step after step 20 and the peak memory), and
      `evaluate` with the shipped weights on phase 10's six frames, the
      same recall and class accuracy on the card as on the CPU;
- 19. one JSON line with every kernel's numbers (launches from phase 7),
-     the `nvidia-smi` line, and as the last line {"ok": true, "device":
-     {...}}.
-Phases 6-9, 11-13 and 14-17 each set the launch counts to 0 just before
-they drive the System (in 14 and 14b: the chunks; in 17: each CLI run)
-and read them just after; each holds K1 to two launches per tracked frame plus one per
-relocalization pose solve and K4 to K2's count. No phase falls back to the
-CPU or to random weights, and a failure of the GBA thread fails the run.
+ 20. the distributed GBA: phase 12's problem at its first closure (256
+     keyframe slots x 1024 keypoint slots, 16384 points, free planes)
+     under the production two-phase schedule, (a) on two gloo ranks that
+     share the card against the single-card `ba.bundle_adjust` (camera
+     RMSE < 2e-3, median point difference < 5e-3 m, plane normals within
+     1e-3), (b) on a one-rank NCCL group against (a) within 1e-5; ms per
+     LM iteration of the three, the all-reduce's ms and bytes;
+ 21. the loop cell with `gba_mesh_devices=2`: two processes on the card,
+     rank 0 the System over phase 12's frames (handed over in an npz),
+     rank 1 `serve_gba`; phase 12's bounds and launch counts, every GBA
+     stage served, the GBA's ms beside phase 12's;
+ 22. data-parallel evaluation: `evaluate_sequences` over three short
+     sequences (tests/test_parallel_eval.py's) in threads on the card
+     against a serial run (the same keyframes, ATE within 1e-6, < 2 cm);
+ 23. the vocabulary trainer: one style x two seeds x 8 frames, 1024 words,
+     15 iterations; the card's words equal the CPU's on the same
+     descriptors, the idf within 1e-6; then its command line;
+ 19. last, one JSON line with every kernel's numbers (launches from phase
+     7), the `nvidia-smi` line, and as the last line {"ok": true,
+     "device": {...}}.
+Phases 6-9, 11-13, 14-17 and 21 each set the launch counts to 0 just
+before they drive the System (in 14 and 14b: the chunks; in 17: each CLI
+run; in 22: the threaded runs) and read them just after; each holds K1 to
+two launches per tracked frame plus one per relocalization pose solve and
+K4 to K2's count. No phase falls back to the CPU or to random weights, a
+failure of the GBA thread fails the run, and so does a child rank that
+fails or outlives its time limit (phases 20-21 run ranks in spawned
+processes grouped through a file store in a temporary directory).
 
 All times are measured on the card in this run (CUDA events for kernels,
 the host clock around synchronized work for frames). `bound_ms` is the
@@ -1392,22 +1412,31 @@ def time_loop_steps(lc):
     return out
 
 
-def phase_loop():
-    """Loop closing at full width on the 144-frame spin: the bounds of
-    tests/test_loop_e2e.py (<= 4 lost frames, >= 1 loop closed, the
-    corrected ATE within 0.5 cm of the raw one and < 10 cm on frames 3 on,
-    plane normals finite and of unit length within 1e-3), a GBA merged
-    after a blocking poll, and the launch counts (K1 twice per tracked
-    frame plus the relocalization solves, K4 as often as K2)."""
+def capture_gba_problem(lc, out: dict) -> None:
+    """Keep a CPU copy of the first GBA problem the loop closer builds (at
+    its first closure) in out["problem"] = (prob, plane_free)."""
+    build = lc._build_gba_problem
+
+    @functools.wraps(build)
+    def run(m):
+        prob, pf = build(m)
+        if "problem" not in out:
+            out["problem"] = (type(prob)(*(t.cpu() for t in prob)),
+                              None if pf is None
+                              else type(pf)(*(t.cpu() for t in pf)))
+        return prob, pf
+
+    lc._build_gba_problem = run
+
+
+def check_loop_run(s, seq, summary, counts, steps, tag: str) -> dict:
+    """The loop cell's bounds (tests/test_loop_e2e.py: <= 4 lost frames,
+    >= 1 loop closed, the corrected ATE within 0.5 cm of the raw one and
+    < 10 cm on frames 3 on, plane normals finite and of unit length
+    within 1e-3), a GBA merged after a blocking poll, and the launch
+    counts (K1 twice per tracked frame plus the relocalization solves, K4
+    as often as K2). Logs and returns the loop closer's numbers."""
     from eao_fusion_tpu_torch.io import tum
-    cfg = _loop_cfg()
-    seq = _spin(cfg.camera)
-    steps = {}
-    s, summary, counts = run_system(
-        cfg, seq, "loop closing",
-        on_system=lambda s: steps.update(
-            timed=time_loop_steps(s.loop_closer)))
-    steps = steps["timed"]
     lc = s.loop_closer
     merges_before = s.n_gba_merges
     t = time.perf_counter()
@@ -1428,7 +1457,7 @@ def phase_loop():
         return [round(x, 2) for x in v]
 
     st = lc.stats
-    log("loop closing: " + json.dumps({
+    out = {
         "lost": n_lost, "keyframes": s.n_keyframes,
         "loops_closed": s.n_loops_closed,
         "gba_merges_during_run": merges_before,
@@ -1454,7 +1483,8 @@ def phase_loop():
         "tracking_frames_gba_inflight":
             summary["tracking_frames_gba_inflight"],
         "median_tracking_frame_ms_no_gba":
-            summary["median_tracking_frame_ms_no_gba"]}))
+            summary["median_tracking_frame_ms_no_gba"]}
+    log(f"{tag}: " + json.dumps(out))
     _check_tracking(summary, counts, ate_cm=10.0)
     if n_lost > 4:
         raise AssertionError(f"{n_lost} lost frames (<= 4)")
@@ -1470,7 +1500,28 @@ def phase_loop():
         raise AssertionError("a map plane is not finite or not unit")
     if lc.gba_inflight():
         raise AssertionError("a GBA is still in flight")
-    return summary
+    return out
+
+
+def phase_loop():
+    """Loop closing at full width on the 144-frame spin (`check_loop_run`'s
+    bounds). Returns the loop closer's numbers and the GBA problem built
+    at the first closure (phase 20's input)."""
+    cfg = _loop_cfg()
+    seq = _spin(cfg.camera)
+    hooks = {}
+
+    def on_system(s):
+        hooks["timed"] = time_loop_steps(s.loop_closer)
+        capture_gba_problem(s.loop_closer, hooks)
+
+    s, summary, counts = run_system(cfg, seq, "loop closing",
+                                    on_system=on_system)
+    out = check_loop_run(s, seq, summary, counts, hooks["timed"],
+                         "loop closing")
+    if "problem" not in hooks:
+        raise AssertionError("no GBA problem was built")
+    return out, hooks["problem"]
 
 
 def _pose_err(pose, tcw):
@@ -2237,6 +2288,447 @@ def _flat_np(tree, prefix=""):
 CAM = (535.4, 539.2, 320.1, 247.6, 40.0)
 
 
+# ------------------------------------------------------------- distributed
+# Phases 20-23 run ranks in spawned child processes (`run_ranks`): each
+# group forms through a file store in a temporary directory; a rank that
+# fails or a group that outlives its time limit fails the phase. Ranks
+# print on lines before the last.
+
+RANK_TIMEOUT_S = 300.0
+
+
+def run_ranks(target, world: int, args, timeout: float = RANK_TIMEOUT_S):
+    """Run target(rank, world, *args) in `world` spawned processes; raise
+    unless every one exits 0 within `timeout` seconds (the rest are
+    killed)."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, world, *args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    late = [p for p in procs if p.is_alive()]
+    for p in late:
+        p.kill()
+        p.join()
+    codes = [p.exitcode for p in procs]
+    if late or any(c != 0 for c in codes):
+        raise AssertionError(f"{target.__name__}: rank exit codes {codes}, "
+                             f"{len(late)} killed after {timeout:.0f} s")
+
+
+def _join_group(rank: int, world: int, store: str, backend: str):
+    """This rank's process group on cuda:0 (every rank of a group shares
+    the card here) through `multihost.ensure_initialized`."""
+    import torch
+    from eao_fusion_tpu_torch.parallel import multihost
+    torch.cuda.set_device(0)
+    multihost.ensure_initialized(multihost.MultihostSpec(
+        coordinator_address=f"file://{store}", num_processes=world,
+        process_id=rank, backend=backend))
+
+
+@contextlib.contextmanager
+def counting_solves():
+    """Count `torch.linalg.solve` calls inside the block, one per LM
+    iteration of either GBA solver: yields the one-element list the
+    count is in."""
+    import torch
+    n = [0]
+    solve = torch.linalg.solve
+
+    def counted(*a, **k):
+        n[0] += 1
+        return solve(*a, **k)
+
+    torch.linalg.solve = counted
+    try:
+        yield n
+    finally:
+        torch.linalg.solve = solve
+
+
+def _save_gba_problem(path, prob, pf, cam) -> None:
+    d = {f"prob_{k}": getattr(prob, k).cpu().numpy() for k in prob._fields}
+    if pf is not None:
+        d.update({f"pf_{k}": getattr(pf, k).cpu().numpy()
+                  for k in pf._fields})
+    np.savez(path, cam=np.asarray(cam, np.float64), **d)
+
+
+def _load_gba_problem(path, dev):
+    import torch
+    from eao_fusion_tpu_torch.solvers import ba
+    z = np.load(path)
+    t = lambda k: torch.as_tensor(z[k], device=dev)
+    prob = ba.BAProblem(*(t(f"prob_{k}") for k in ba.BAProblem._fields))
+    pf = (ba.PlaneFreeBlock(*(t(f"pf_{k}") for k in ba.PlaneFreeBlock._fields))
+          if "pf_pl_coeff" in z else None)
+    return prob, pf, tuple(float(x) for x in z["cam"])
+
+
+def _timed_gba(run, solves, barrier=lambda: None):
+    """(result, ms per LM iteration, LM iterations) of run(): once to warm
+    up, then timed on the host clock between synchronizations (and, for
+    ranks, the group's barrier)."""
+    import torch
+    run()
+    torch.cuda.synchronize()
+    barrier()
+    n0 = solves[0]
+    t = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    iters = solves[0] - n0
+    return res, (time.perf_counter() - t) * 1e3 / max(iters, 1), iters
+
+
+def _gba_rank(rank, world, backend, tmp, n1, n2):
+    """Phase 20's rank: the distributed GBA of the saved problem on cuda:0,
+    timed; then the all-reduce of one LM iteration's camera system alone.
+    Rank 0 writes the result and the times."""
+    import torch
+    import torch.distributed as dist
+    from eao_fusion_tpu_torch.config import SolverConfig
+    from eao_fusion_tpu_torch.parallel import dist_ba, mesh
+    _join_group(rank, world, os.path.join(tmp, f"store_{backend}{world}"),
+                backend)
+    m = mesh.make_mesh(device_type="cuda")
+    prob, pf, cam = _load_gba_problem(os.path.join(tmp, "gba.npz"), "cuda")
+
+    def run():
+        return dist_ba.distributed_bundle_adjust(
+            prob, m, plane_free=pf, cam=cam, cfg=SolverConfig(),
+            n_iters1=n1, n_iters=n2)
+
+    with counting_solves() as solves:
+        res, ms_iter, iters = _timed_gba(run, solves, dist.barrier)
+    C = prob.cam_pose.shape[0]
+    buf = torch.zeros(C * C * 36 + C * 6, dtype=torch.float64,
+                      device="cuda")
+    for _ in range(2):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t = time.perf_counter()
+    for _ in range(10):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    ar_ms = (time.perf_counter() - t) * 1e3 / 10
+    if rank == 0:
+        np.savez(os.path.join(tmp, f"gba_{backend}{world}.npz"),
+                 cam_pose=res.cam_pose.cpu().numpy(),
+                 pt_xyz=res.pt_xyz.cpu().numpy(),
+                 pl_coeff=(res.pl_coeff.cpu().numpy()
+                           if res.pl_coeff is not None else np.zeros(0)),
+                 chi2=res.chi2.cpu().numpy(), ms_iter=ms_iter, iters=iters,
+                 allreduce_ms=ar_ms, allreduce_bytes=buf.numel() * 8)
+    dist.destroy_process_group()
+
+
+def _cam_rmse(a, b) -> float:
+    """RMS of the SE3 log of a⁻¹ b over the cameras (tests/test_ba.py)."""
+    import torch
+    from eao_fusion_tpu_torch.ops import lie
+    d = lie.se3_log(lie.se3_compose(lie.se3_inverse(torch.as_tensor(a)),
+                                    torch.as_tensor(b))).numpy()
+    return float(np.sqrt((d ** 2).sum(-1).mean()))
+
+
+def phase_dist_ba(problem, loop_cfg):
+    """Phase 20: the GBA problem of phase 12's first closure (full width:
+    256 keyframe slots x 1024 keypoint slots, 16384 points, free planes)
+    under the production two-phase schedule (global_ba_iters): (a) two
+    gloo ranks sharing cuda:0 against the port's single-card
+    `ba.bundle_adjust` (tests/test_ba.py:180-186's bounds: camera RMSE <
+    2e-3, median point difference < 5e-3 m; plane normals within 1e-3);
+    (b) a one-rank NCCL group against (a) within 1e-5 (only the order of
+    the sums differs). ms per LM iteration of each beside the dense
+    solver's, the all-reduce's ms and bytes per iteration."""
+    import tempfile
+
+    import torch
+    from eao_fusion_tpu_torch.solvers import ba
+    prob, pf = problem
+    c = loop_cfg.camera
+    cam = (c.fx, c.fy, c.cx, c.cy, c.bf)
+    total = loop_cfg.solver.global_ba_iters
+    n1, n2 = total // 2, total - total // 2
+    C, N = prob.obs_pt.shape
+    log(f"distributed BA: C = {C}, N = {N}, P = {prob.pt_xyz.shape[0]}, "
+        f"L = {0 if pf is None else pf.pl_coeff.shape[0]}, "
+        f"{int(prob.obs_valid.sum())} observations, "
+        f"{int(prob.cam_valid.sum())} cameras, schedule {n1} + {n2}")
+    with tempfile.TemporaryDirectory() as tmp:
+        _save_gba_problem(os.path.join(tmp, "gba.npz"), prob, pf, cam)
+        dprob, dpf, _ = _load_gba_problem(os.path.join(tmp, "gba.npz"),
+                                          "cuda")
+        with counting_solves() as solves:
+            dense, dense_ms, dense_it = _timed_gba(
+                lambda: ba.bundle_adjust(dprob, plane_free=dpf, cam=cam,
+                                         cfg=loop_cfg.solver, n_iters1=n1,
+                                         n_iters2=n2), solves)
+        del dprob, dpf
+        torch.cuda.empty_cache()
+        runs = {}
+        for backend, world in (("gloo", 2), ("nccl", 1)):
+            t = time.perf_counter()
+            run_ranks(_gba_rank, world, (backend, tmp, n1, n2))
+            runs[(backend, world)] = dict(np.load(
+                os.path.join(tmp, f"gba_{backend}{world}.npz")))
+            log(f"  {world} {backend} rank(s): "
+                f"{time.perf_counter() - t:.1f} s with start-up")
+    two, one = runs[("gloo", 2)], runs[("nccl", 1)]
+    kv = prob.cam_valid.numpy()
+    pv = prob.pt_valid.numpy()
+    d_pose = _cam_rmse(two["cam_pose"][kv], dense.cam_pose.cpu().numpy()[kv])
+    d_pt = float(np.median(np.linalg.norm(
+        two["pt_xyz"][pv] - dense.pt_xyz.cpu().numpy()[pv], axis=1)))
+    out = {"dense_ms_per_iter": dense_ms, "dense_iters": dense_it,
+           "rank2_gloo_ms_per_iter": float(two["ms_iter"]),
+           "rank2_iters": int(two["iters"]),
+           "rank1_nccl_ms_per_iter": float(one["ms_iter"]),
+           "rank1_iters": int(one["iters"]),
+           "allreduce_ms_gloo2": float(two["allreduce_ms"]),
+           "allreduce_ms_nccl1": float(one["allreduce_ms"]),
+           "allreduce_bytes_per_iter": int(two["allreduce_bytes"]),
+           "cam_rmse_vs_dense": d_pose, "pt_median_vs_dense_m": d_pt}
+    if pf is not None:
+        lv = pf.pl_free.numpy()
+        out["plane_normal_vs_dense"] = float(np.abs(
+            two["pl_coeff"][lv, :3]
+            - dense.pl_coeff.cpu().numpy()[lv, :3]).max()) if lv.any() \
+            else 0.0
+    out["one_vs_two_pose"] = float(np.abs(one["cam_pose"]
+                                          - two["cam_pose"]).max())
+    out["one_vs_two_pt_rel"] = float((np.abs(one["pt_xyz"] - two["pt_xyz"])
+                                      / np.maximum(np.abs(two["pt_xyz"]),
+                                                   1.0)).max())
+    out["one_vs_two_chi2_rel"] = float(abs(one["chi2"] - two["chi2"])
+                                       / max(abs(float(two["chi2"])), 1e-9))
+    log("distributed BA: " + json.dumps(out))
+    if not (d_pose < 2e-3 and d_pt < 5e-3
+            and out.get("plane_normal_vs_dense", 0.0) < 1e-3):
+        raise AssertionError("the 2-rank GBA departs from the dense one")
+    if not (out["one_vs_two_pose"] < 1e-5 and out["one_vs_two_pt_rel"] < 1e-5
+            and out["one_vs_two_chi2_rel"] < 1e-5):
+        raise AssertionError("the 1-rank NCCL GBA departs from the 2-rank "
+                             "gloo one")
+    return out
+
+
+class _SavedSequence:
+    """Frames handed to a child process in an npz: what `run_system` and
+    `check_loop_run` read of a synthetic sequence."""
+
+    def __init__(self, path):
+        from types import SimpleNamespace
+        z = np.load(path)
+        gray, depth, ts, tcw = z["gray"], z["depth"], z["ts"], z["tcw"]
+        self.frames = [SimpleNamespace(gray=gray[i], depth=depth[i],
+                                       timestamp=float(ts[i]), tcw=tcw[i],
+                                       boxes=None)
+                       for i in range(len(ts))]
+
+    def gt_tcw(self):
+        return np.stack([f.tcw for f in self.frames])
+
+    @staticmethod
+    def save(path, seq) -> None:
+        np.savez(path, gray=np.stack([f.gray for f in seq.frames]),
+                 depth=np.stack([f.depth for f in seq.frames]),
+                 ts=np.array([f.timestamp for f in seq.frames]),
+                 tcw=seq.gt_tcw())
+
+
+def _loop_rank(rank, world, tmp):
+    """Phase 21's rank: rank 0 runs the loop cell's System with
+    gba_mesh_devices = world and writes its numbers; the others serve
+    the GBA."""
+    from eao_fusion_tpu_torch.parallel import dist_ba, mesh
+    _join_group(rank, world, os.path.join(tmp, "store"), "gloo")
+    cfg = _loop_cfg().replace(gba_mesh_devices=world)
+    if rank:
+        c = cfg.camera
+        served = dist_ba.serve_gba(mesh.make_mesh(n_landmark=world),
+                                   (c.fx, c.fy, c.cx, c.cy, c.bf),
+                                   cfg.solver)
+        log(f"rank {rank}: served {served} GBA stages")
+        with open(os.path.join(tmp, f"served_{rank}.json"), "w") as f:
+            json.dump(served, f)
+        return
+    seq = _SavedSequence(os.path.join(tmp, "spin.npz"))
+    hooks = {}
+    try:
+        s, summary, counts = run_system(
+            cfg, seq, "loop closing, mesh GBA",
+            on_system=lambda s: hooks.update(
+                timed=time_loop_steps(s.loop_closer), lc=s.loop_closer))
+        out = check_loop_run(s, seq, summary, counts, hooks["timed"],
+                             "loop closing, mesh GBA")
+        out["launches"] = counts
+    finally:
+        lc = hooks.get("lc")
+        if lc is not None:
+            lc.abort_gba()
+            dist_ba.stop_gba_server(lc.gba_mesh)
+    with open(os.path.join(tmp, "loop.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_loop_mesh(loop_out):
+    """Phase 21: the loop cell with gba_mesh_devices = 2, two processes on
+    the card (rank 0 the System, rank 1 `serve_gba`), the spin15 frames
+    of phase 12 handed over in an npz: the loop cell's bounds and launch
+    counts (`check_loop_run`), every GBA stage served, and the GBA's ms
+    beside phase 12's."""
+    import tempfile
+    cfg = _loop_cfg()
+    seq = _spin(cfg.camera)
+    with tempfile.TemporaryDirectory() as tmp:
+        _SavedSequence.save(os.path.join(tmp, "spin.npz"), seq)
+        t = time.perf_counter()
+        run_ranks(_loop_rank, 2, (tmp,))
+        wall = time.perf_counter() - t
+        with open(os.path.join(tmp, "loop.json")) as f:
+            out = json.load(f)
+        with open(os.path.join(tmp, "served_1.json")) as f:
+            served = json.load(f)
+    stages = len(out["gba_stage_ms"])
+    log("loop closing, mesh GBA against phase 12: " + json.dumps({
+        "wall_s_with_start_up": wall, "stages_served": served,
+        "gba_whole_ms_mean": out["gba_whole_ms_mean"],
+        "gba_whole_ms_mean_phase12": loop_out["gba_whole_ms_mean"],
+        "gba_stage_ms": out["gba_stage_ms"],
+        "gba_stage_ms_phase12": loop_out["gba_stage_ms"],
+        "median_tracking_frame_ms_gba_inflight":
+            out["median_tracking_frame_ms_gba_inflight"],
+        "median_tracking_frame_ms_gba_inflight_phase12":
+            loop_out["median_tracking_frame_ms_gba_inflight"]}))
+    if served != stages or served < 1:
+        raise AssertionError(f"rank 1 served {served} GBA stages, rank 0 "
+                             f"ran {stages}")
+    return out
+
+
+def _arc_loader(n, seed, style, dn=0.0):
+    """A loader of a rendered sequence, rendered once per run."""
+    @functools.lru_cache(maxsize=None)
+    def make():
+        from eao_fusion_tpu_torch.io import synthetic
+        return synthetic.generate_sequence(n_frames=n, seed=seed,
+                                           style=style, depth_noise=dn)
+    return make
+
+
+def phase_eval():
+    """Phase 22: `evaluate_sequences` over three short sequences
+    (tests/test_parallel_eval.py's: arcs of 12 frames, seeds 0 and 5 with
+    1 cm depth noise, and a 15-frame forward run) in three threads on
+    cuda:0, against a serial run: the same keyframe counts, ATE within
+    1e-6, each ATE < 2 cm; K4 as often as K2 over the threaded runs."""
+    from eao_fusion_tpu_torch import kernels
+    from eao_fusion_tpu_torch.config import MapCapacity, ORBConfig, \
+        SystemConfig
+    from eao_fusion_tpu_torch.parallel import eval as peval
+    import torch
+    cfg = SystemConfig(orb=ORBConfig(n_features=400, max_keypoints=512),
+                       capacity=MapCapacity(max_keyframes=32,
+                                            max_points=4096),
+                       use_planes=False, use_objects=False)
+    seqs = [("arc12", _arc_loader(12, 0, "arc")),
+            ("arc12n", _arc_loader(12, 5, "arc", 0.01)),
+            ("fwd15", _arc_loader(15, 3, "forward"))]
+    t = time.perf_counter()
+    for _, mk in seqs:
+        mk()
+    log(f"evaluation: rendered {len(seqs)} sequences in "
+        f"{time.perf_counter() - t:.1f} s (host)")
+    t = time.perf_counter()
+    ser = [peval._run_one(mk, name, cfg, "cuda:0") for name, mk in seqs]
+    torch.cuda.synchronize()
+    ser_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    par = peval.evaluate_sequences(seqs, cfg, devices=["cuda:0"])
+    torch.cuda.synchronize()
+    par_s = time.perf_counter() - t
+    counts = dict(kernels.launches)
+    log(peval.summarize(par))
+    log("evaluation: " + json.dumps({
+        "serial_s": ser_s, "threads_s": par_s, "launches": counts,
+        "ate_cm": [r.ate_rmse * 100 for r in par],
+        "ate_gap_vs_serial": [abs(a.ate_rmse - b.ate_rmse)
+                              for a, b in zip(par, ser)]}))
+    for rp, rs in zip(par, ser):
+        if not (rp.n_keyframes == rs.n_keyframes
+                and abs(rp.ate_rmse - rs.ate_rmse) <= 1e-6
+                and rp.ate_rmse < 0.02 and rp.device == "cuda:0"):
+            raise AssertionError(f"{rp} against the serial {rs}")
+    if counts["pose_opt"] < 1 or counts["chol_solve"] != \
+            counts["ba_edge_full"] or counts["ba_edge_full"] < 1:
+        raise AssertionError(f"evaluation launches {counts}")
+    return {"serial_s": ser_s, "threads_s": par_s}
+
+
+def phase_vocab():
+    """Phase 23: the vocabulary trainer on one style x two seeds x 8
+    frames (about 16k descriptors) with 1024 words and 15 iterations:
+    the card's words equal a CPU run's on the same descriptors, the idf
+    within 1e-6; then the command line into a temporary --out."""
+    import tempfile
+    from eao_fusion_tpu_torch.mapping import vocabulary
+    from eao_fusion_tpu_torch.tools import train_vocab
+    scenes = dict(styles=("arc",), textures=("blocky",), seeds=(100, 101),
+                  n_frames=8)
+    quiet = lambda *a: None
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        descs = train_vocab.gather_descriptors(**scenes, device="cuda",
+                                               cache_dir=tmp)
+        gather_s = time.perf_counter() - t
+        X = np.concatenate(descs).astype(np.float32)
+        t = time.perf_counter()
+        words = train_vocab.kmeans_words(X, 1024, 15,
+                                         np.random.default_rng(0),
+                                         device="cuda", log=quiet)
+        idf = train_vocab.idf_weights(descs, words, device="cuda")
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        words_cpu = train_vocab.kmeans_words(X, 1024, 15,
+                                             np.random.default_rng(0),
+                                             device="cpu", log=quiet)
+        idf_cpu = train_vocab.idf_weights(descs, words_cpu, device="cpu")
+        cpu_s = time.perf_counter() - t
+        out = os.path.join(tmp, "vocab.npz")
+        t = time.perf_counter()
+        res = train_vocab.main(["--words", "1024", "--styles", "arc",
+                                "--textures", "blocky", "--seeds", "100",
+                                "101", "--frames", "8", "--cache-dir", tmp,
+                                "--out", out])
+        cli_s = time.perf_counter() - t
+        v = vocabulary.Vocabulary.load(out, device="cuda")
+        cli_same = bool(np.array_equal(v.words.cpu().numpy(),
+                                       words.astype(np.int8)))
+    log("vocabulary: " + json.dumps({
+        "descriptors": int(len(X)), "images": len(descs),
+        "gather_s": gather_s, "kmeans_idf_card_s": card_s,
+        "kmeans_idf_cpu_s": cpu_s, "command_line_s": cli_s,
+        "command_line_words_equal_the_phase": cli_same,
+        "idf_max_diff": float(np.abs(idf - idf_cpu).max())}))
+    if not (np.array_equal(words, words_cpu)
+            and np.abs(idf - idf_cpu).max() <= 1e-6):
+        raise AssertionError("the card's vocabulary differs from the CPU's")
+    if v.n_words != 1024 or res["descriptors"] != len(X):
+        raise AssertionError(f"the command line wrote {v.n_words} words "
+                             f"from {res['descriptors']} descriptors")
+    return {"card_s": card_s, "cpu_s": cpu_s, "command_line_s": cli_s}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2283,7 +2775,7 @@ def main() -> int:
         obj_summary, _ = phase_objects()
         phase_detector()
         phase_online(obj_summary)
-        phase_loop()
+        loop_out, gba_problem = phase_loop()
         phase_relocalization()
         phase_steady(obj_summary, smi_line)
         phase_loop_chunks()
@@ -2291,6 +2783,10 @@ def main() -> int:
         phase_stereo()
         phase_cli(obj_summary)
         phase_training()
+        phase_dist_ba(gba_problem, _loop_cfg())
+        phase_loop_mesh(loop_out)
+        phase_eval()
+        phase_vocab()
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -7,8 +7,10 @@ at once) into `build/kernels/` beside the package; a library's file name
 carries a hash of its source, so an edited source is rebuilt. Nothing here
 runs when the module is imported, so the CPU tests import it freely.
 
-Every wrapper adds one to `launches[<kernel>]` where it launches its
-kernel, and nowhere else; `reset_launches()` sets the counts to 0.
+Every wrapper adds one to `launches[<kernel>]` (`count_launch`) where it
+launches its kernel, and nowhere else; `reset_launches()` sets the counts
+to 0. Building, loading and counting are safe across threads (the
+data-parallel evaluator runs a System in each).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List
@@ -39,6 +42,11 @@ launches: Dict[str, int] = {"pose_opt": 0, "ba_edge_full": 0,
                             "ba_edge_chi2": 0, "chol_solve": 0}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# one build-and-load at a time: two threads asking for a missing library
+# would otherwise both start nvcc; reentrant, since `library` builds
+# through `build_all`
+_build_lock = threading.RLock()
+_count_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,8 +76,15 @@ SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _count_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def count_launch(kernel: str) -> None:
+    """Add one to the launch count of `kernel`."""
+    with _count_lock:
+        launches[kernel] += 1
 
 
 def lib_path(name: str) -> Path:
@@ -92,7 +107,11 @@ def build_all(names: List[str] = None) -> Dict[str, float]:
     together. Returns {name: seconds} for the libraries it built; raises
     with the compiler's output if one fails. `-Xptxas -v` output (registers,
     shared memory, spills) is kept in `build/kernels/<lib>.log`."""
-    names = list(SOURCES) if names is None else names
+    with _build_lock:
+        return _build(list(SOURCES) if names is None else names)
+
+
+def _build(names: List[str]) -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -100,7 +119,7 @@ def build_all(names: List[str] = None) -> Dict[str, float]:
         out = lib_path(name)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC_DIR / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -125,15 +144,19 @@ def build_all(names: List[str] = None) -> Dict[str, float]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library `name`, built first if needed."""
     lib = _loaded.get(name)
-    if lib is None:
-        path = lib_path(name)
-        if not path.exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(path))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _build_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = lib_path(name)
+            if not path.exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(path))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _loaded[name] = lib
     return lib
 
 

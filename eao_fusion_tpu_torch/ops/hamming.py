@@ -24,3 +24,16 @@ def hamming_matrix(pm1_a: torch.Tensor, pm1_b: torch.Tensor) -> torch.Tensor:
     dt = torch.float16 if pm1_a.is_cuda else torch.float32
     dot = torch.matmul(pm1_a.to(dt), pm1_b.to(dt).T).float()
     return ((N_BITS - dot) * 0.5).to(torch.int32)
+
+
+def hamming_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Popcount XOR distance of packed [.., 8] uint32 descriptor pairs
+    (elementwise, not a matrix); for small oracle checks. The words are
+    widened to int64, where the SWAR popcount's products cannot wrap."""
+    m = 0xFFFFFFFF
+    x = torch.bitwise_xor(a.to(torch.int64), b.to(torch.int64)) & m
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    cnt = ((x * 0x01010101) & m) >> 24
+    return torch.sum(cnt, dim=-1).to(torch.int32)

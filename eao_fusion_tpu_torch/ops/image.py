@@ -1,5 +1,5 @@
-"""Image ops: Gaussian kernel, pyramid construction and batched window
-reads (port of `eao_fusion_tpu/ops/image.py`).
+"""Image ops: grayscale, separable Gaussian blur, pyramid construction
+and batched window reads (port of `eao_fusion_tpu/ops/image.py`).
 
 `jax.image.resize(..., "bilinear")` antialiases when it downscales
 (`image.py:69`); the matching PyTorch call is `F.interpolate` with
@@ -16,10 +16,30 @@ import torch
 import torch.nn.functional as F
 
 
+def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
+    """[H,W,3] (float or uint8) -> [H,W] float32 in [0,1]."""
+    x = rgb.to(torch.float32)
+    if rgb.dtype == torch.uint8:
+        x = x / 255.0
+    return x @ torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32,
+                            device=rgb.device)
+
+
 def gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
     x = np.arange(-radius, radius + 1, dtype=np.float64)
     k = np.exp(-0.5 * (x / sigma) ** 2)
     return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float = 2.0,
+                  radius: int = 3) -> torch.Tensor:
+    """Separable Gaussian blur with edge replication, the vertical pass
+    first. img: [H, W] f32."""
+    k = torch.as_tensor(gaussian_kernel1d(sigma, radius), device=img.device)
+    x = F.pad(img[None, None], (0, 0, radius, radius), mode="replicate")
+    x = F.conv2d(x, k[None, None, :, None])
+    x = F.pad(x, (radius, radius, 0, 0), mode="replicate")
+    return F.conv2d(x, k[None, None, None, :])[0, 0]
 
 
 def pyramid_shapes(height: int, width: int, n_levels: int,

@@ -148,6 +148,14 @@ def se3_from_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([rotmat_to_quat(R), t], dim=-1)
 
 
+def se3_rotation(p: torch.Tensor) -> torch.Tensor:
+    return p[..., :4]
+
+
+def se3_translation(p: torch.Tensor) -> torch.Tensor:
+    return p[..., 4:7]
+
+
 def se3_matrix(p: torch.Tensor) -> torch.Tensor:
     """[..., 4, 4] homogeneous matrix."""
     R = quat_to_rotmat(p[..., :4])

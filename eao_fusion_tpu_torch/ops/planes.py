@@ -73,6 +73,12 @@ def eigh3_smallest(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return lam0, v
 
 
+def backproject_depth(depth: torch.Tensor, cam: CameraConfig
+                      ) -> torch.Tensor:
+    """[H, W] depth -> [H, W, 3] camera-frame organized cloud."""
+    return torch.stack(backproject_depth_channels(depth, cam), dim=-1)
+
+
 def backproject_depth_channels(depth: torch.Tensor, cam: CameraConfig):
     """[H, W] depth -> three [H, W] camera-frame channel images (x, y, z),
     at pixel centres."""

@@ -25,6 +25,12 @@ makes the caller's stream wait for the GBA's last event. A failure in the
 thread is kept and raised by `poll_gba` (or `abort_gba`), not printed and
 dropped as the JAX thread does.
 
+With `gba_mesh_devices = n > 1` every GBA stage runs over an n-rank
+`torch.distributed` mesh (`parallel/dist_ba.gba_stage`, as the JAX route
+through `distributed_bundle_adjust`); the loop closer runs on rank 0, the
+other ranks run `dist_ba.serve_gba`, and without such a group it raises
+(the JAX route falls back to the single-device solver).
+
 Batched detection for the steady chunked loop: `dispatch_detect` refreshes
 the observation indicator and writes the chunk's bow rows on the caller's
 stream, then enqueues the covisibility product and the L1 scores on a
@@ -43,17 +49,44 @@ from typing import List, Optional, Set, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from eao_fusion_tpu_torch.config import SystemConfig
 from eao_fusion_tpu_torch.frontend import matcher
 from eao_fusion_tpu_torch.mapping import covisibility, plane_map, vocabulary
 from eao_fusion_tpu_torch.mapping.map_state import MapState, refresh_obs_ind
 from eao_fusion_tpu_torch.ops import lie, ransac
+from eao_fusion_tpu_torch.parallel import dist_ba, multihost
+from eao_fusion_tpu_torch.parallel import mesh as pmesh
 from eao_fusion_tpu_torch.solvers import ba, pose_graph
 from eao_fusion_tpu_torch.types import FrameFeatures
 
 N_PAIR_PAD = 512     # the Sim3 pair table: the best matches, masked
 DETECT_BATCH = 64    # keyframe slots per batched detection
+
+
+def _gba_mesh(n: int, device: torch.device):
+    """The ``lm`` mesh of n ranks that the global BA runs over, made on the
+    primary rank (the other ranks make theirs and run
+    `dist_ba.serve_gba`). Raises without such a process group: there is
+    no single-device fallback."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"gba_mesh_devices = {n} runs the global BA over a "
+            f"torch.distributed process group of {n} ranks, and no process "
+            f"group is initialized: call parallel.multihost."
+            f"ensure_initialized() on every rank and run "
+            f"parallel.dist_ba.serve_gba on ranks 1..{n - 1}")
+    if dist.get_world_size() < n:
+        raise RuntimeError(
+            f"gba_mesh_devices = {n} needs a process group of {n} ranks; "
+            f"the initialized group has {dist.get_world_size()}")
+    if not multihost.is_primary():
+        raise RuntimeError("the loop closer runs on the primary rank; the "
+                           "other ranks run parallel.dist_ba.serve_gba")
+    mesh = pmesh.make_mesh(n_landmark=n, device_type=device.type)
+    dist_ba.gba_control(mesh)    # collective: `serve_gba` makes it too
+    return mesh
 
 
 def _covis(m: MapState) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -77,11 +110,10 @@ class LoopCloser:
 
     def __init__(self, cfg: SystemConfig, vocab: vocabulary.Vocabulary,
                  generator: torch.Generator):
-        if cfg.gba_mesh_devices > 1:
-            raise NotImplementedError(
-                "gba_mesh_devices > 1 routes the global BA to the "
-                "distributed layer, which is not ported yet")
         self.cfg = cfg
+        # the mesh of the distributed GBA (gba_mesh_devices > 1)
+        self.gba_mesh = (_gba_mesh(cfg.gba_mesh_devices, vocab.words.device)
+                         if cfg.gba_mesh_devices > 1 else None)
         self.vocab = vocab
         self.generator = generator
         self.device = vocab.words.device
@@ -554,10 +586,17 @@ class LoopCloser:
         return prob, plane_free
 
     def _gba_stage(self, prob, plane_free, n1: int, n2: int):
-        """One stage of n1 phase-1 and n2 phase-2 LM iterations."""
+        """One stage of n1 phase-1 and n2 phase-2 LM iterations: on the
+        mesh, the observation-sharded solver with the serving ranks (n1 = 0
+        runs one phase over every valid observation, as the JAX route
+        does); else the single-device solver."""
         c = self.cfg.camera
-        return ba.bundle_adjust(prob, plane_free=plane_free,
-                                cam=(c.fx, c.fy, c.cx, c.cy, c.bf),
+        cam = (c.fx, c.fy, c.cx, c.cy, c.bf)
+        if self.gba_mesh is not None:
+            return dist_ba.gba_stage(self.gba_mesh, prob, plane_free,
+                                     cam=cam, cfg=self.cfg.solver,
+                                     n_iters1=n1, n_iters=n2)
+        return ba.bundle_adjust(prob, plane_free=plane_free, cam=cam,
                                 cfg=self.cfg.solver, n_iters1=n1,
                                 n_iters2=n2)
 

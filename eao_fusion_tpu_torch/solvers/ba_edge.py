@@ -273,7 +273,7 @@ class EdgePass:
             self._argp, cam_pose.data_ptr(), pt_xyz.data_ptr(),
             active.data_ptr(), kernels.stream_ptr(self.device))
         kernels.check(err, "ba_edge_full_launch")
-        kernels.launches["ba_edge_full"] += 1
+        kernels.count_launch("ba_edge_full")
         return self._acc_c, self._acc_p, self._y
 
     def chi2_sum(self, cam_pose: torch.Tensor, pt_xyz: torch.Tensor,
@@ -289,7 +289,7 @@ class EdgePass:
             active.data_ptr(), self._sum.data_ptr(), None,
             kernels.stream_ptr(self.device))
         kernels.check(err, "ba_edge_chi2_launch")
-        kernels.launches["ba_edge_chi2"] += 1
+        kernels.count_launch("ba_edge_chi2")
         return self._sum
 
     def chi2_edges(self, cam_pose: torch.Tensor, pt_xyz: torch.Tensor,
@@ -308,5 +308,5 @@ class EdgePass:
             active.data_ptr(), None, out.data_ptr(),
             kernels.stream_ptr(self.device))
         kernels.check(err, "ba_edge_chi2_launch")
-        kernels.launches["ba_edge_chi2"] += 1
+        kernels.count_launch("ba_edge_chi2")
         return out[0], out[1], out[2]

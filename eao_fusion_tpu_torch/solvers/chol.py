@@ -87,5 +87,5 @@ def cholesky_solve_cuda(M: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     err = lib.chol_solve_launch(M.data_ptr(), rhs.data_ptr(), x.data_ptr(), D,
                                 smem, kernels.stream_ptr(M.device))
     kernels.check(err, "chol_solve_launch")
-    kernels.launches["chol_solve"] += 1
+    kernels.count_launch("chol_solve")
     return x

@@ -239,6 +239,6 @@ def optimize_pose_cuda(pose0: torch.Tensor, obs: PoseObs,
         pose.data_ptr(), inliers.data_ptr(), n_inliers.data_ptr(),
         chi2.data_ptr(), kernels.stream_ptr(dev))
     kernels.check(err, "pose_opt_launch")
-    kernels.launches["pose_opt"] += 1
+    kernels.count_launch("pose_opt")
     return PoseOptResult(pose=pose, inliers=inliers, n_inliers=n_inliers,
                          chi2=chi2)

@@ -75,3 +75,13 @@ def test_optional_libraries_load_lazily(path):
             top.append(node.module)
     bad = [n for n in top if n.split(".")[0] in OPTIONAL]
     assert not bad, f"{path} imports {bad} at module level"
+
+
+# the distributed layer and the vocabulary trainer
+PARALLEL_AND_VOCAB = [f"eao_fusion_tpu_torch/{p}" for p in (
+    "parallel/__init__.py", "parallel/multihost.py", "parallel/mesh.py",
+    "parallel/dist_ba.py", "parallel/eval.py", "tools/train_vocab.py")]
+
+
+def test_parallel_and_vocab_modules_are_checked():
+    assert set(PARALLEL_AND_VOCAB) <= set(FILES)

@@ -2,7 +2,8 @@
 keyframe-rate local BA over the 20-frame seed-0 arc (small config; objects
 and loop closing off, planes off and on), the port's System on the CPU
 beside the JAX System on the same frames; which options the port
-accepts, and where it routes frames without depth."""
+accepts, what the mesh-routed global BA needs, and where it routes frames
+without depth."""
 
 import numpy as np
 import pytest
@@ -105,12 +106,15 @@ def test_device_defaults_to_the_card(monkeypatch):
         System(_tcfg())
 
 
-@pytest.mark.parametrize("flag", ["gba_mesh_devices"])
-def test_unported_options_raise(flag):
-    """Only the distributed layer remains unported: a global BA over a
-    device mesh raises."""
-    with pytest.raises(NotImplementedError, match="distributed"):
-        System(_tcfg(use_loop_closing=True, **{flag: 2}), device="cpu")
+def test_mesh_gba_needs_a_process_group():
+    """A global BA over a 2-rank mesh (`tum_fr3_config(gba_mesh_devices=2)`)
+    without an initialized process group raises, naming it: there is no
+    single-device fallback. The routed path runs in
+    tests/test_torch_gba_mesh.py."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no process group"):
+        System(TC.tum_fr3_config(gba_mesh_devices=2), device="cpu")
 
 
 @pytest.mark.parametrize("flag", ["use_objects", "semantic_online",
