@@ -118,17 +118,34 @@ Phases (any failure exits non-zero and prints no result line):
  23. the vocabulary trainer: one style x two seeds x 8 frames, 1024 words,
      15 iterations; the card's words equal the CPU's on the same
      descriptors, the idf within 1e-6; then its command line;
+ 24. the map-sharded steady step (`parallel/sharded_step.py`): the
+     steady cell's `tum_fr3_config()` at full width; a System warmed with
+     `process_frame` on 8 frames of the arc hands its state over in an
+     npz (`io/checkpoint` and the generator's state), then the other 12
+     frames run (a) through the unsharded `steady.slam_step`, (b) through
+     `make_sharded_slam_step` on 2 gloo ranks sharing the card (mesh
+     2 x 1), (c) on 4 gloo ranks (2 x 2), (d) on a 1-rank NCCL group
+     (1 x 1); (b)-(d) give (a)'s bits in every frame's pose, keyframe
+     decision and inliers and in the gathered final map and object
+     table, the replicated state is checked across the ranks after every
+     frame, every rank launches (a)'s counts and holds P / n_lm point
+     rows, K / n_kf keyframe rows and the [K / n_kf, P / n_lm] block of
+     obs_ind; the ms per frame (tracked and keyframe medians), the
+     collectives' calls, bytes and ms, each rank's resident and peak
+     bytes;
  19. last, one JSON line with every kernel's numbers (launches from phase
      7), the `nvidia-smi` line, and as the last line {"ok": true,
      "device": {...}}.
-Phases 6-9, 11-13, 14-17 and 21 each set the launch counts to 0 just
-before they drive the System (in 14 and 14b: the chunks; in 17: each CLI
-run; in 22: the threaded runs) and read them just after; each holds K1 to
-two launches per tracked frame plus one per relocalization pose solve and
-K4 to K2's count. No phase falls back to the CPU or to random weights, a
+Phases 6-9, 11-13, 14-17, 21 and 24 each set the launch counts to 0 just
+before they drive the System or the steady step (in 14 and 14b: the
+chunks; in 17: each CLI run; in 22: the threaded runs; in 24: the 12
+frames, in each rank) and read them just after; each holds K1 to two
+launches per tracked frame plus one per relocalization pose solve and K4
+to K2's count. No phase falls back to the CPU or to random weights, a
 failure of the GBA thread fails the run, and so does a child rank that
-fails or outlives its time limit (phases 20-21 run ranks in spawned
-processes grouped through a file store in a temporary directory).
+fails or outlives its time limit (phases 20-21 and 24 run ranks in
+spawned processes grouped through a file store in a temporary
+directory).
 
 All times are measured on the card in this run (CUDA events for kernels,
 the host clock around synchronized work for frames). `bound_ms` is the
@@ -2289,10 +2306,10 @@ CAM = (535.4, 539.2, 320.1, 247.6, 40.0)
 
 
 # ------------------------------------------------------------- distributed
-# Phases 20-23 run ranks in spawned child processes (`run_ranks`): each
-# group forms through a file store in a temporary directory; a rank that
-# fails or a group that outlives its time limit fails the phase. Ranks
-# print on lines before the last.
+# Phases 20, 21 and 24 run ranks in spawned child processes (`run_ranks`):
+# each group forms through a file store in a temporary directory; a rank
+# that fails or a group that outlives its time limit fails the phase.
+# Ranks print on lines before the last.
 
 RANK_TIMEOUT_S = 300.0
 
@@ -2729,6 +2746,232 @@ def phase_vocab():
     return {"card_s": card_s, "cpu_s": cpu_s, "command_line_s": cli_s}
 
 
+# ------------------------------------------------------------ sharded step
+# Phase 24: the steady step with the map held in row blocks over an
+# (lm, kf) mesh of ranks that share the card (`parallel/sharded_step.py`),
+# against the unsharded step on the same handed-over state.
+
+SHARDED_MESHES = (("gloo", (2, 1)), ("gloo", (2, 2)), ("nccl", (1, 1)))
+
+
+def _save_steady(tmp, s, cfg, frames) -> None:
+    """A warmed System's state for the ranks (the `io/checkpoint` npz and
+    its generator's state beside it) and the frames they run (images,
+    padded box tables, timestamps)."""
+    from eao_fusion_tpu_torch.io import checkpoint
+    checkpoint.save_state(os.path.join(tmp, "steady.npz"), s)
+    np.save(os.path.join(tmp, "steady_gen.npy"),
+            s.generator.get_state().numpy())
+    bx = np.zeros((len(frames), cfg.objects.max_objects_2d, 6), np.float32)
+    for i, f in enumerate(frames):
+        b = np.asarray(f.boxes, np.float32)[:bx.shape[1]]
+        bx[i, :len(b)] = b
+    np.savez(os.path.join(tmp, "frames.npz"),
+             gray=np.stack([f.gray for f in frames]),
+             depth=np.stack([f.depth for f in frames]), boxes=bx,
+             ts=np.array([f.timestamp for f in frames], np.float32))
+
+
+def _load_steady(tmp, cfg):
+    """(the steady carry restored from `_save_steady` on the card, the
+    frames as card tensors); the same bits in every process."""
+    import torch
+    from eao_fusion_tpu_torch.io import checkpoint
+    from eao_fusion_tpu_torch.pipeline import steady
+    from eao_fusion_tpu_torch.pipeline.system import System
+    s = System(cfg.replace(use_loop_closing=False))
+    checkpoint.load_state(os.path.join(tmp, "steady.npz"), s)
+    s.generator.set_state(torch.from_numpy(
+        np.load(os.path.join(tmp, "steady_gen.npy"))))
+    z = np.load(os.path.join(tmp, "frames.npz"))
+    frames = [(torch.as_tensor(z["gray"][t], device="cuda"),
+               torch.as_tensor(z["depth"][t], device="cuda"),
+               torch.as_tensor(z["boxes"][t], device="cuda"),
+               float(z["ts"][t])) for t in range(len(z["ts"]))]
+    return steady.init_steady_state(s), frames
+
+
+def _map_bytes(m) -> int:
+    return sum(t.numel() * t.element_size() for t in m)
+
+
+def _run_frames(step, st, frames, maps=None, check=None):
+    """Drive `step` over the frames, each timed on the host clock between
+    synchronizations, the launch counts set to 0 just before and read just
+    after. Returns (state, per-frame record, counts); `check(state)` runs
+    after each frame, outside the timing."""
+    import torch
+    from eao_fusion_tpu_torch import kernels
+    per = {k: [] for k in ("ms", "kf_inserted", "n_inliers", "pose",
+                           "calls", "bytes", "coll_ms")}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for frame in frames:
+        c0 = (maps.calls, maps.bytes, maps.ms) if maps else (0, 0, 0.0)
+        t = time.perf_counter()
+        st, diag = step(st, *frame)
+        torch.cuda.synchronize()
+        per["ms"].append((time.perf_counter() - t) * 1e3)
+        c1 = (maps.calls, maps.bytes, maps.ms) if maps else (0, 0, 0.0)
+        for k, a, b in zip(("calls", "bytes", "coll_ms"), c0, c1):
+            per[k].append(b - a)
+        per["kf_inserted"].append(bool(diag["kf_inserted"]))
+        per["n_inliers"].append(int(diag["n_inliers"]))
+        per["pose"].append(st.ts.pose.cpu().numpy())
+        if check is not None:
+            check(st)
+    counts = dict(kernels.launches)
+    return st, {k: np.asarray(v) for k, v in per.items()}, counts
+
+
+def _steady_record(st) -> dict:
+    """The final map and object table of a steady carry, as arrays."""
+    from eao_fusion_tpu_torch.types import tree_to_numpy
+    out = {f"map.{k}": v for k, v in tree_to_numpy(st.m).items()}
+    out.update({f"objs.{k}": v for k, v in tree_to_numpy(st.objs).items()})
+    out["kp_pt"] = st.ts.kp_pt.cpu().numpy()
+    return out
+
+
+def _sharded_rank(rank, world, backend, shape, tmp):
+    """Phase 24's rank: the sharded steady step on a `shape` mesh of ranks
+    sharing the card, from the handed-over state, every frame timed (the
+    collectives too: `ShardedMap.timed`) and the replicated state checked
+    across the ranks after it. Each rank writes its launches, block
+    shapes, resident and peak bytes; rank 0 the per-frame record and the
+    gathered final state."""
+    import torch
+    import torch.distributed as dist
+    from eao_fusion_tpu_torch.config import tum_fr3_config
+    from eao_fusion_tpu_torch.parallel import mesh, sharded_step
+    tag = f"{backend}{shape[0]}x{shape[1]}"
+    _join_group(rank, world, os.path.join(tmp, f"store_{tag}"), backend)
+    cfg = tum_fr3_config()
+    dm = mesh.make_mesh(*shape, device_type="cuda")
+    st, frames = _load_steady(tmp, cfg)
+    whole_bytes = _map_bytes(st.m)
+    sst = sharded_step.shard_state(st, dm)
+    del st
+    step = sharded_step.make_sharded_slam_step(dm, cfg)
+    sst.maps.timed = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    sst, per, counts = _run_frames(step, sst, frames, sst.maps,
+                                   sharded_step.assert_replicated)
+    m = sst.m
+    info = {"launches": counts, "coord": list(sst.maps.coord),
+            "pt_rows": m.pt_xyz.shape[0], "kf_rows": m.kf_pose.shape[0],
+            "obs_block": list(m.obs_ind.shape),
+            "resident_bytes": _map_bytes(m), "whole_map_bytes": whole_bytes,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    with open(os.path.join(tmp, f"{tag}_{rank}.json"), "w") as f:
+        json.dump(info, f)
+    whole = sharded_step.unshard_state(sst)
+    if rank == 0:
+        np.savez(os.path.join(tmp, f"{tag}.npz"),
+                 **{f"per.{k}": v for k, v in per.items()},
+                 **_steady_record(whole))
+    dist.destroy_process_group()
+
+
+def _medians(per) -> dict:
+    """Medians of the tracked (no keyframe) and the keyframe frames."""
+    kf = per["kf_inserted"].astype(bool)
+
+    def med(k, sel):
+        return float(np.median(per[k][sel])) if sel.any() else None
+    return {f"{k}_{part}": med(k, sel) for k in ("ms", "calls", "bytes",
+                                                 "coll_ms")
+            for part, sel in (("tracked", ~kf), ("keyframe", kf))}
+
+
+def phase_sharded_step(smi_line: str):
+    """Phase 24: the steady cell's configuration, `tum_fr3_config()` at
+    full width (planes, objects with the renderer's boxes): rank 0 warms a
+    System with `process_frame` on 8 frames of the 20-frame arc, as phase
+    14, and hands its state over in an npz; then the other 12 frames run
+    (a) through the unsharded `steady.slam_step` here, (b) through
+    `make_sharded_slam_step` on 2 gloo ranks sharing the card (mesh
+    2 x 1), (c) on 4 gloo ranks (2 x 2), (d) on a 1-rank NCCL group
+    (1 x 1). (b)-(d) must give (a)'s bits in every frame's pose, keyframe
+    decision and inliers and in the gathered final map and object table;
+    at least one keyframe; every rank (a)'s launch counts (K1 twice a
+    frame, K4 as often as K2) and the blocks P / n_lm point rows, K / n_kf
+    keyframe rows, [K / n_kf, P / n_lm] of obs_ind. Prints the ms per
+    frame (tracked and keyframe medians), the collectives' calls, bytes
+    and ms, and each rank's resident and peak map bytes."""
+    import tempfile
+    import torch
+    from eao_fusion_tpu_torch.config import tum_fr3_config
+    from eao_fusion_tpu_torch.pipeline import steady
+    from eao_fusion_tpu_torch.pipeline.system import System
+    cfg = tum_fr3_config()
+    P, K = cfg.capacity.max_points, cfg.capacity.max_keyframes
+    seq = _arc(N_FRAMES, cfg)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        s = System(cfg)
+        for f in seq.frames[:STEADY_WARM]:
+            s.process_frame(f.gray, f.depth, f.timestamp, boxes=f.boxes)
+        s._poll_gba(blocking=True)
+        _save_steady(tmp, s, cfg, seq.frames[STEADY_WARM:])
+        del s
+        st, frames = _load_steady(tmp, cfg)
+        step = functools.partial(steady.slam_step, cfg=cfg)
+        st, ref, ref_counts = _run_frames(step, st, frames)
+        ref_rec = _steady_record(st)
+        del st
+        out["a"] = dict(_medians(ref), launches=ref_counts)
+        if ref["kf_inserted"].sum() < 1:
+            raise AssertionError("no keyframe inserted in the 12 frames")
+        _check_launches(ref_counts, len(frames), 0)
+        for (backend, shape), name in zip(SHARDED_MESHES, "bcd"):
+            n_lm, n_kf = shape
+            tag = f"{backend}{n_lm}x{n_kf}"
+            t = time.perf_counter()
+            run_ranks(_sharded_rank, n_lm * n_kf, (backend, shape, tmp))
+            wall = time.perf_counter() - t
+            z = dict(np.load(os.path.join(tmp, f"{tag}.npz")))
+            per = {k[4:]: v for k, v in z.items() if k.startswith("per.")}
+            infos = [json.load(open(os.path.join(tmp, f"{tag}_{r}.json")))
+                     for r in range(n_lm * n_kf)]
+            out[name] = dict(
+                _medians(per), mesh=tag, wall_s_with_start_up=wall,
+                bytes_per_frame=per["bytes"].tolist(),
+                calls_per_frame=per["calls"].tolist(),
+                resident_bytes=[i["resident_bytes"] for i in infos],
+                whole_map_bytes=infos[0]["whole_map_bytes"],
+                peak_bytes=[i["peak_bytes"] for i in infos])
+            for k in ("kf_inserted", "n_inliers"):
+                if not np.array_equal(per[k], ref[k]):
+                    raise AssertionError(f"{tag}: {k} {per[k].tolist()} "
+                                         f"against {ref[k].tolist()}")
+            if not np.array_equal(per["pose"].view(np.int32),
+                                  ref["pose"].view(np.int32)):
+                bad = np.nonzero((per["pose"] != ref["pose"]).any(1))[0]
+                raise AssertionError(f"{tag}: poses differ from frame "
+                                     f"{int(bad[0])}")
+            differ = [k for k in ref_rec if not np.array_equal(
+                np.asarray(z[k]).reshape(-1).view(np.uint8),
+                np.asarray(ref_rec[k]).reshape(-1).view(np.uint8))]
+            if differ:
+                raise AssertionError(f"{tag}: the gathered state differs "
+                                     f"in {differ}")
+            for r, i in enumerate(infos):
+                if i["launches"] != ref_counts:
+                    raise AssertionError(f"{tag} rank {r}: launches "
+                                         f"{i['launches']}, unsharded "
+                                         f"{ref_counts}")
+                if (i["pt_rows"] != P // n_lm or i["kf_rows"] != K // n_kf
+                        or i["obs_block"] != [K // n_kf, P // n_lm]):
+                    raise AssertionError(f"{tag} rank {r} holds {i}")
+    log("sharded step (24): " + json.dumps({
+        **out, "frames": len(frames), "keyframes":
+            int(ref["kf_inserted"].sum()), "card": smi_line}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2787,6 +3030,7 @@ def main() -> int:
         phase_loop_mesh(loop_out)
         phase_eval()
         phase_vocab()
+        phase_sharded_step(smi_line)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

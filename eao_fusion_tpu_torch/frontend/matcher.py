@@ -91,13 +91,15 @@ def masked_best2(dist: torch.Tensor, mask: torch.Tensor
     return best_idx.to(torch.int32), best, second
 
 
-def match_points_to_frame(
-        pts_w, pt_desc_pm1, pt_valid, pt_ref_angle, pt_level, radius_px,
-        level_lo, level_hi, feats, tcw, *, cam, width: int, height: int,
-        th: int = 100, nn_ratio: float = 1.0, use_ratio: bool = False,
-        histo_length: int = 30, check_rotation: bool = True) -> MatchResult:
-    """Projection search of P landmark points into the frame; returns the
-    keypoint-centric association (target_idx[k] = source row or -1)."""
+def candidate_matches(
+        pts_w, pt_desc_pm1, pt_valid, radius_px, level_lo, level_hi, feats,
+        tcw, *, cam, width: int, height: int, th: int = 100,
+        nn_ratio: float = 1.0, use_ratio: bool = False
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The row-wise half of the projection search: each landmark row's
+    best keypoint, its distance and whether it passes the threshold and
+    ratio tests, (best_kp [P] int32, best [P], ok [P] bool). Every row is
+    independent of the others."""
     uv_p, _, in_img = project_points(tcw, pts_w, cam, width, height)
     dist = hamming.hamming_matrix(pt_desc_pm1, feats.desc_pm1)   # [P, N]
 
@@ -115,7 +117,20 @@ def match_points_to_frame(
     if use_ratio:
         ok = ok & (best.float()
                    <= nn_ratio * torch.clamp(second, max=th + 1).float())
+    return best_kp, best, ok
 
+
+def match_points_to_frame(
+        pts_w, pt_desc_pm1, pt_valid, pt_ref_angle, pt_level, radius_px,
+        level_lo, level_hi, feats, tcw, *, cam, width: int, height: int,
+        th: int = 100, nn_ratio: float = 1.0, use_ratio: bool = False,
+        histo_length: int = 30, check_rotation: bool = True) -> MatchResult:
+    """Projection search of P landmark points into the frame; returns the
+    keypoint-centric association (target_idx[k] = source row or -1)."""
+    best_kp, best, ok = candidate_matches(
+        pts_w, pt_desc_pm1, pt_valid, radius_px, level_lo, level_hi, feats,
+        tcw, cam=cam, width=width, height=height, th=th, nn_ratio=nn_ratio,
+        use_ratio=use_ratio)
     n_kp = feats.uv.shape[0]
     kp_to_src = resolve_duplicates(best_kp, best, ok, n_kp)
     matched = kp_to_src >= 0

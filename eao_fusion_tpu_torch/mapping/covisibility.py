@@ -29,7 +29,12 @@ def local_keyframes(Z: torch.Tensor, seen_pts: torch.Tensor,
                     kf_valid: torch.Tensor, k_top: int) -> torch.Tensor:
     """bool [K] mask of the top `k_top` keyframes by votes of `seen_pts`
     (vote > 0)."""
-    votes = Z @ seen_pts.float()
+    return select_local_keyframes(Z @ seen_pts.float(), kf_valid, k_top)
+
+
+def select_local_keyframes(votes: torch.Tensor, kf_valid: torch.Tensor,
+                           k_top: int) -> torch.Tensor:
+    """`local_keyframes` from the votes [K] themselves."""
     votes = torch.where(kf_valid, votes, -1.0)
     k_top = min(k_top, votes.shape[0])
     thresh = torch.topk(votes, k_top).values[-1]

@@ -4,8 +4,8 @@
 Axes:
   * ``lm``  (landmark): map points are sharded here; the Schur-complement
     reduction of the distributed GBA is an all-reduce over it.
-  * ``kf``  (keyframe): reserved for keyframe-block sharding of very large
-    pose graphs.
+  * ``kf``  (keyframe): the map-sharded steady step
+    (`parallel/sharded_step.py`) splits the keyframe tables here.
 
 The mesh is a `torch.distributed` `DeviceMesh` over the ranks of the
 initialized process group (one device per rank), built collectively:

@@ -94,31 +94,37 @@ def _keyframe_branch(m: ms.MapState, ts: tracking.TrackState,
 
 def slam_step(st: SteadyState, gray: torch.Tensor, depth: torch.Tensor,
               boxes: torch.Tensor, timestamp: float, *, cfg: SystemConfig,
-              kf_every: int = 0) -> Tuple[SteadyState, dict]:
+              kf_every: int = 0, maps: tracking.WholeMap = tracking.WHOLE
+              ) -> Tuple[SteadyState, dict]:
     """One steady-state frame. `boxes` is a fixed-shape [B, 6] detection
     table (class, x, y, w, h, score; score <= 0 rows are padding), and the
     object lane runs on every frame over it. `kf_every` > 0 pins a keyframe
     cadence (one per that many frames while tracking is OK, in place of the
     tracker's decision); 0 takes the tracker's decision, or a new map
-    object's."""
+    object's. `maps` runs the landmark-axis steps (`tracking.WholeMap`;
+    `parallel/sharded_step` passes a map split over ranks): the object
+    lane reads its whole point table, and the keyframe branch runs on its
+    whole map."""
     m, ts, objs, last_fo, fid, gen = st
     feats = extractor.extract_features(gray, depth, orb_cfg=cfg.orb,
                                        cam_cfg=cfg.camera)
     fp = (plane_ops.segment_planes(depth, cam=cfg.camera, cfg=cfg.planes)
           if cfg.use_planes else None)
 
-    m, ts, diag = tracking.track_frame(m, ts, feats, fid, fp, cfg=cfg)
+    m, ts, diag = tracking.track_frame(m, ts, feats, fid, fp, cfg=cfg,
+                                       maps=maps)
 
     # ---- object lane (per frame) ----
     new_obj = torch.zeros((), dtype=torch.bool, device=ts.pose.device)
     if cfg.use_objects:
-        fo = om.build_frame_objects(boxes, feats, ts.kp_pt, m.pt_xyz,
-                                    m.pt_valid, ts.pose, cfg=cfg)
-        fo = om.merge_frame_objects(fo, last_fo, m.pt_valid, cfg=cfg)
-        assoc = association.ensemble_associate(objs, fo, m.pt_xyz, ts.pose,
+        pt_xyz, pt_valid = maps.whole_points(m)
+        fo = om.build_frame_objects(boxes, feats, ts.kp_pt, pt_xyz,
+                                    pt_valid, ts.pose, cfg=cfg)
+        fo = om.merge_frame_objects(fo, last_fo, pt_valid, cfg=cfg)
+        assoc = association.ensemble_associate(objs, fo, pt_xyz, ts.pose,
                                                fid, cfg=cfg)
         prev_next_obj = objs.next_obj
-        objs = obj_update.object_update(objs, fo, assoc, m.pt_xyz, ts.pose,
+        objs = obj_update.object_update(objs, fo, assoc, pt_xyz, ts.pose,
                                         fid, gen, cfg=cfg)
         new_obj = objs.next_obj > prev_next_obj
         last_fo = fo
@@ -140,12 +146,13 @@ def slam_step(st: SteadyState, gray: torch.Tensor, depth: torch.Tensor,
         need_obj = bool(made) and ok
         need = need_classic or need_obj
         by_obj = need_obj and not need_classic
-    need = need and next_kf < m.max_kf
+    need = need and next_kf < maps.n_keyframes(m)
     if need:
-        m, ts = _keyframe_branch(m, ts, feats, fp, fid, timestamp, cfg,
-                                 by_obj=by_obj)
+        m, ts = _keyframe_branch(maps.gather(m), ts, feats, fp, fid,
+                                 timestamp, cfg, by_obj=by_obj)
         if cfg.use_objects:
             objs = obj_merge.merge_and_overlap(objs, m.pt_xyz, gen, cfg=cfg)
+        m = maps.keep_rows(m)
 
     diag = dict(diag)
     diag["kf_inserted"] = need
@@ -156,7 +163,8 @@ def slam_step(st: SteadyState, gray: torch.Tensor, depth: torch.Tensor,
 
 def slam_chunk(st: SteadyState, grays: torch.Tensor, depths: torch.Tensor,
                boxes: torch.Tensor, timestamps, *, cfg: SystemConfig,
-               kf_every: int = 0) -> Tuple[SteadyState, dict]:
+               kf_every: int = 0, maps: tracking.WholeMap = tracking.WHOLE
+               ) -> Tuple[SteadyState, dict]:
     """`slam_step` over a [T, H, W] chunk of frames (`boxes` [T, B, 6],
     `timestamps` [T]). Returns the carry and the stacked per-frame
     diagnostics of `CHUNK_DIAG` (`pose` is the pose after each frame)."""
@@ -166,7 +174,7 @@ def slam_chunk(st: SteadyState, grays: torch.Tensor, depths: torch.Tensor,
     for t in range(grays.shape[0]):
         st, diag = slam_step(st, grays[t], depths[t], boxes[t],
                              float(timestamps[t]), cfg=cfg,
-                             kf_every=kf_every)
+                             kf_every=kf_every, maps=maps)
         for k in CHUNK_DIAG[:-1]:
             per[k].append(diag[k])
         per["pose"].append(st.ts.pose)

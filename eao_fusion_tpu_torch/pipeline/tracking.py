@@ -6,6 +6,12 @@ two `lax.cond`s of the JAX function (the doubled-window retry and the
 reference-keyframe fallback, `tracking.py:126,148`) become host branches:
 each reads one match count with `.item()` and runs only the branch taken,
 instead of computing both sides.
+
+The steps along the map's landmark axis (point and keyframe row reads,
+the covisibility votes, the local-map search, the found / visible marks)
+go through a `WholeMap`, which runs them on a map this process holds
+whole. `parallel/sharded_step.ShardedMap` runs the same steps on one row
+block of a map split over the ranks of a mesh.
 """
 
 from __future__ import annotations
@@ -86,16 +92,6 @@ def _inv_sigma2(level: torch.Tensor, scale: float) -> torch.Tensor:
     return scale ** (-2.0 * level.float())
 
 
-def _build_pose_obs(m: MapState, feats: FrameFeatures, kp_pt: torch.Tensor,
-                    scale: float) -> pose_opt.PoseObs:
-    ok = (kp_pt >= 0) & feats.valid
-    idx = torch.clamp(kp_pt.long(), 0, m.max_pt - 1)
-    return pose_opt.PoseObs(
-        pts_w=m.pt_xyz[idx], uv=feats.uv, uright=feats.uright,
-        inv_sigma2=_inv_sigma2(feats.level, scale),
-        valid=ok & m.pt_valid[idx])
-
-
 def _mark(n: int, idx: torch.Tensor) -> torch.Tensor:
     """bool [n] with True at the non-negative entries of idx."""
     out = torch.zeros((n,), dtype=torch.bool, device=idx.device)
@@ -103,15 +99,100 @@ def _mark(n: int, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class WholeMap:
+    """The landmark-axis steps of a frame (`track_frame`, and the object
+    lane and keyframe branch of `steady.slam_step`) on a map that this
+    process holds whole: plain indexing and products."""
+
+    def n_points(self, m: MapState) -> int:
+        return m.max_pt
+
+    def n_keyframes(self, m: MapState) -> int:
+        return m.max_kf
+
+    def begin_frame(self, m: MapState) -> None:
+        """Called once a frame, before the steps below."""
+
+    def point_rows(self, m: MapState, idx: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(pt_xyz, pt_valid) at the point ids `idx` (in range)."""
+        return m.pt_xyz[idx], m.pt_valid[idx]
+
+    def whole_points(self, m: MapState) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(pt_xyz, pt_valid) of every point: the object lane's view."""
+        return m.pt_xyz, m.pt_valid
+
+    def kf_rows(self, m: MapState, k, names) -> tuple:
+        """The rows at keyframe slot `k` (an int or a 0-d tensor) of the
+        keyframe tables `names`."""
+        return tuple(getattr(m, n)[k] for n in names)
+
+    def mark(self, m: MapState, idx: torch.Tensor) -> torch.Tensor:
+        """bool over the point rows held here, True at the non-negative
+        ids of `idx`."""
+        return _mark(m.max_pt, idx)
+
+    def local_keyframes(self, m: MapState, Z: torch.Tensor,
+                        seen: torch.Tensor, k_top: int) -> torch.Tensor:
+        return covisibility.local_keyframes(Z, seen, m.kf_valid, k_top)
+
+    def points_of_keyframes(self, Z: torch.Tensor, kf_mask: torch.Tensor
+                            ) -> torch.Tensor:
+        return covisibility.points_of_keyframes(Z, kf_mask)
+
+    def match_points_to_frame(self, *args, **kwargs) -> matcher.MatchResult:
+        """The local-map search (`matcher.match_points_to_frame`) over the
+        point rows held here; target_idx holds point ids."""
+        return matcher.match_points_to_frame(*args, **kwargs)
+
+    def reference_keyframe(self, Z: torch.Tensor, found: torch.Tensor,
+                           cand: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the keyframe that observes most of `found`, the count of
+        `cand`)."""
+        return torch.argmax(Z @ found.float()).to(torch.int32), cand.sum()
+
+    def point_obs_at(self, Z: torch.Tensor, idx: torch.Tensor
+                     ) -> torch.Tensor:
+        """The observation counts (Z's column sums) of the point ids
+        `idx`, -1 read as 0."""
+        return torch.sum(Z, dim=0)[torch.clamp(idx.long(), min=0)]
+
+    def gather(self, m: MapState) -> MapState:
+        """The whole map, for the keyframe branch."""
+        return m
+
+    def keep_rows(self, m: MapState) -> MapState:
+        """The part of a whole map that this process holds."""
+        return m
+
+
+WHOLE = WholeMap()
+
+
+def _build_pose_obs(m: MapState, feats: FrameFeatures, kp_pt: torch.Tensor,
+                    scale: float, maps: WholeMap = WHOLE
+                    ) -> pose_opt.PoseObs:
+    ok = (kp_pt >= 0) & feats.valid
+    idx = torch.clamp(kp_pt.long(), 0, maps.n_points(m) - 1)
+    xyz, valid = maps.point_rows(m, idx)
+    return pose_opt.PoseObs(
+        pts_w=xyz, uv=feats.uv, uright=feats.uright,
+        inv_sigma2=_inv_sigma2(feats.level, scale), valid=ok & valid)
+
+
 def track_frame(m: MapState, ts: TrackState, feats: FrameFeatures,
                 frame_id: int, planes: Optional[FramePlanes] = None, *,
-                cfg: SystemConfig) -> Tuple[MapState, TrackState, dict]:
+                cfg: SystemConfig, maps: WholeMap = WHOLE
+                ) -> Tuple[MapState, TrackState, dict]:
     cam = (cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy)
     cam5 = cam + (cfg.camera.bf,)
     W, H = cfg.camera.width, cfg.camera.height
     s = cfg.orb.scale_factor
     n_kp = cfg.orb.max_keypoints
     dev = ts.pose.device
+    P, K = maps.n_points(m), maps.n_keyframes(m)
+    maps.begin_frame(m)
 
     # ---- 1. motion-model prediction -----------------------------------
     pose_guess = lie.se3_compose(ts.velocity, ts.last_pose)
@@ -119,9 +200,9 @@ def track_frame(m: MapState, ts: TrackState, feats: FrameFeatures,
     # ---- 2. match last frame's tracked points -------------------------
     last_pt = ts.kp_pt
     lf = ts.last_feats
-    src_idx = torch.clamp(last_pt.long(), 0, m.max_pt - 1)
-    src_valid = (last_pt >= 0) & lf.valid & m.pt_valid[src_idx]
-    pts_w = m.pt_xyz[src_idx]
+    src_idx = torch.clamp(last_pt.long(), 0, P - 1)
+    pts_w, src_ok = maps.point_rows(m, src_idx)
+    src_valid = (last_pt >= 0) & lf.valid & src_ok
     radius = cfg.matcher.radius_motion_model * s ** lf.level.float()
 
     def run_mm(radius_mult):
@@ -145,12 +226,14 @@ def track_frame(m: MapState, ts: TrackState, feats: FrameFeatures,
     # reference keyframe, seeded from the last pose (host branch)
     use_ref = n_mm2 < cfg.tracking.min_matches_track
     if use_ref:
-        ref = min(max(int(ts.ref_kf), 0), m.max_kf - 1)
-        ref_pt = m.kf_pt_idx[ref]
-        va = (m.kf_kp_valid[ref] & (ref_pt >= 0)
-              & m.pt_valid[torch.clamp(ref_pt.long(), min=0)])
+        ref = min(max(int(ts.ref_kf), 0), K - 1)
+        ref_pt, ref_kp_valid, ref_desc, ref_angle = maps.kf_rows(
+            m, ref, ("kf_pt_idx", "kf_kp_valid", "kf_desc_pm1",
+                     "kf_kp_angle"))
+        va = (ref_kp_valid & (ref_pt >= 0)
+              & maps.point_rows(m, torch.clamp(ref_pt.long(), min=0))[1])
         mm = matcher.mutual_match(
-            m.kf_desc_pm1[ref], va, m.kf_kp_angle[ref],
+            ref_desc, va, ref_angle,
             feats.desc_pm1, feats.valid, feats.angle,
             th=cfg.matcher.th_low, use_ratio=True, check_rotation=True)
         kp_pt_mm = torch.full((n_kp,), -1, dtype=torch.int32, device=dev)
@@ -159,16 +242,16 @@ def track_frame(m: MapState, ts: TrackState, feats: FrameFeatures,
         pose_guess = ts.last_pose
 
     # ---- 3. first pose optimization -----------------------------------
-    obs1 = _build_pose_obs(m, feats, kp_pt_mm, s)
+    obs1 = _build_pose_obs(m, feats, kp_pt_mm, s, maps)
     r1 = pose_opt.optimize_pose(pose_guess, obs1, cam=cam5, cfg=cfg.solver)
     kp_pt_mm = torch.where(r1.inliers & (kp_pt_mm >= 0), kp_pt_mm, -1)
 
     # ---- 4. local map -------------------------------------------------
     Z = covisibility.observation_indicator(m)
-    seen = _mark(m.max_pt, kp_pt_mm)
-    kf_local = covisibility.local_keyframes(
-        Z, seen, m.kf_valid, cfg.tracking.max_local_keyframes)
-    pt_local = covisibility.points_of_keyframes(Z, kf_local) & m.pt_valid
+    seen = maps.mark(m, kp_pt_mm)
+    kf_local = maps.local_keyframes(m, Z, seen,
+                                    cfg.tracking.max_local_keyframes)
+    pt_local = maps.points_of_keyframes(Z, kf_local) & m.pt_valid
 
     # frustum + view-cone gating (Frame::isInFrustum)
     center = lie.se3_inverse(r1.pose)[4:7]
@@ -187,7 +270,7 @@ def track_frame(m: MapState, ts: TrackState, feats: FrameFeatures,
     r_base = torch.where(view_cos > 0.998, 2.5, 4.0)
     radius_lm = r_base * s ** pred_lvl.float()
     # only points not already matched this frame
-    res_lm = matcher.match_points_to_frame(
+    res_lm = maps.match_points_to_frame(
         m.pt_xyz, m.pt_desc_pm1, visible & ~seen,
         torch.zeros((m.max_pt,), device=dev), pred_lvl,
         radius_lm, pred_lvl - 1, pred_lvl,
@@ -208,13 +291,13 @@ def track_frame(m: MapState, ts: TrackState, feats: FrameFeatures,
             plane_obs.meas_c, plane_obs.plane_w, r1.pose))
 
     # ---- 5. second pose optimization ----------------------------------
-    obs2 = _build_pose_obs(m, feats, kp_pt, s)
+    obs2 = _build_pose_obs(m, feats, kp_pt, s, maps)
     r2 = pose_opt.optimize_pose(r1.pose, obs2, plane_obs, cam=cam5,
                                 cfg=cfg.solver)
     kp_pt = torch.where(r2.inliers & (kp_pt >= 0), kp_pt, -1)
     n_in = (kp_pt >= 0).sum().to(torch.int32)
 
-    found = _mark(m.max_pt, kp_pt)
+    found = maps.mark(m, kp_pt)
     m = m._replace(pt_found=m.pt_found + found.to(torch.int32))
 
     ok = n_in >= cfg.tracking.min_matches_track
@@ -222,13 +305,11 @@ def track_frame(m: MapState, ts: TrackState, feats: FrameFeatures,
     pose_out = torch.where(ok, r2.pose, ts.pose)
 
     # ---- 6. keyframe decision (NeedNewKeyFrame) -----------------------
-    ref_kf = torch.argmax(Z @ found.float()).to(torch.int32)
-    pt_obs = torch.sum(Z, dim=0)
+    ref_kf, n_local_pts = maps.reference_keyframe(Z, found, cand)
     mature_obs = 3.0 if cfg.sensor == "mono" else 2.0
     min_obs = torch.where(m.next_kf <= 2, 1.0, mature_obs)
-    ref_pts = m.kf_pt_idx[ref_kf.long()]
-    ref_ok = (ref_pts >= 0) & (pt_obs[torch.clamp(ref_pts.long(), min=0)]
-                               >= min_obs)
+    ref_pts, = maps.kf_rows(m, ref_kf.long(), ("kf_pt_idx",))
+    ref_ok = (ref_pts >= 0) & (maps.point_obs_at(Z, ref_pts) >= min_obs)
     n_ref = ref_ok.sum().to(torch.int32)
     close = (feats.depth > 0) & (feats.depth < cfg.camera.depth_threshold)
     tracked_close = (close & (kp_pt >= 0)).sum().to(torch.int32)
@@ -242,7 +323,7 @@ def track_frame(m: MapState, ts: TrackState, feats: FrameFeatures,
     ratio_ok = ratio_ok & (frames_since
                            >= cfg.tracking.min_frames_between_kf)
     c2 = (ratio_ok | need_close) & (n_in > 15)
-    has_capacity = m.next_kf < m.max_kf
+    has_capacity = m.next_kf < K
     need_kf = ok & (c1 | c2) & has_capacity & (frames_since >= 1)
 
     vel = lie.se3_compose(pose_out, lie.se3_inverse(ts.last_pose))
@@ -255,7 +336,7 @@ def track_frame(m: MapState, ts: TrackState, feats: FrameFeatures,
         last_kf_frame_id=ts.last_kf_frame_id)
     diag = {"n_mm": torch.tensor(n_mm, device=dev), "n_inliers": n_in,
             "need_kf": need_kf,
-            "n_local_pts": cand.sum(),
+            "n_local_pts": n_local_pts,
             "n_kf_local": kf_local.sum(),
             "n_ref": n_ref, "tracked_close": tracked_close,
             "untracked_close": untracked_close,

@@ -80,8 +80,34 @@ def test_optional_libraries_load_lazily(path):
 # the distributed layer and the vocabulary trainer
 PARALLEL_AND_VOCAB = [f"eao_fusion_tpu_torch/{p}" for p in (
     "parallel/__init__.py", "parallel/multihost.py", "parallel/mesh.py",
-    "parallel/dist_ba.py", "parallel/eval.py", "tools/train_vocab.py")]
+    "parallel/dist_ba.py", "parallel/eval.py", "parallel/sharded_step.py",
+    "tools/train_vocab.py")]
 
 
 def test_parallel_and_vocab_modules_are_checked():
     assert set(PARALLEL_AND_VOCAB) <= set(FILES)
+
+
+# the JAX package's modules that have no port file at the same path, and
+# what stands in for each
+REPLACED = {
+    "ops/precision.py": "the precision rule: float32 solver math, TF32 off",
+    "solvers/pose_opt_pallas.py": "csrc/pose_opt.cu",
+    "solvers/ba_edge_pallas.py": "csrc/ba_edge.cu",
+    "solvers/chol_pallas.py": "csrc/chol_solve.cu",
+}
+
+
+def test_every_jax_module_has_its_port():
+    """The port has a file for every module of the JAX package, at the
+    same relative path, but for the four that are replaced: the Pallas
+    kernels by the CUDA sources, the `f32_matmuls` decorator by the
+    port's precision rule."""
+    def modules(pkg):
+        return {str(p.relative_to(ROOT / pkg))
+                for p in (ROOT / pkg).rglob("*.py")}
+    assert (modules("eao_fusion_tpu") - modules("eao_fusion_tpu_torch")
+            == set(REPLACED))
+    for stand_in in REPLACED.values():
+        if stand_in.startswith("csrc/"):
+            assert (ROOT / "eao_fusion_tpu_torch" / stand_in).exists()

@@ -186,3 +186,169 @@ def job_gba_mesh(rank, world, tmp, args):
                                    cfg.solver)
         with open(os.path.join(tmp, f"served_{rank}.json"), "w") as f:
             json.dump({"served": served}, f)
+
+
+# ------------------------------------------------------------ sharded step
+
+def save_steady(path, system) -> None:
+    """A warmed System's state for `load_steady`: the checkpoint npz
+    (`io/checkpoint`) and its generator's state beside it."""
+    from eao_fusion_tpu_torch.io import checkpoint
+    checkpoint.save_state(path, system)
+    np.save(str(path)[:-4] + "_gen.npy",
+            system.generator.get_state().numpy())
+
+
+def load_steady(path, cfg, device="cpu"):
+    """The steady carry (`steady.init_steady_state`) of a System on
+    `device` restored from `save_steady`'s files; the same bits in every
+    process."""
+    import torch
+    from eao_fusion_tpu_torch.io import checkpoint
+    from eao_fusion_tpu_torch.pipeline import steady
+    from eao_fusion_tpu_torch.pipeline.system import System
+    s = System(cfg, device=device)
+    checkpoint.load_state(str(path), s)
+    s.generator.set_state(torch.from_numpy(np.load(str(path)[:-4]
+                                                   + "_gen.npy")))
+    return steady.init_steady_state(s)
+
+
+def run_record(st) -> dict:
+    """The final map, track and object arrays of a SteadyState."""
+    from eao_fusion_tpu_torch.types import tree_to_numpy
+    out = {f"map.{k}": v for k, v in tree_to_numpy(st.m).items()}
+    out.update({f"objs.{k}": v for k, v in tree_to_numpy(st.objs).items()})
+    out["pose"] = st.ts.pose.cpu().numpy()
+    out["kp_pt"] = st.ts.kp_pt.cpu().numpy()
+    return out
+
+
+def _sharded_errors(cfg, world) -> dict:
+    """What the sharded step raises on meshes and capacities that do not
+    fit: {case: the ValueError's text, or None if none was raised}."""
+    import dataclasses
+    import types
+    import torch
+    from eao_fusion_tpu_torch.parallel import mesh, sharded_step
+
+    def capacity(**kw):
+        return cfg.replace(capacity=dataclasses.replace(cfg.capacity, **kw))
+
+    cases = {
+        "mesh_over_group": lambda: mesh.make_mesh(n_landmark=world + 1),
+        "mesh_over_group_step": lambda: sharded_step.make_sharded_slam_step(
+            types.SimpleNamespace(
+                mesh=torch.arange(world + 2).reshape(world + 2, 1),
+                mesh_dim_names=("lm", "kf"), device_type="cpu"), cfg),
+        "max_points": lambda: sharded_step.make_sharded_slam_step(
+            mesh.make_mesh(n_landmark=world, device_type="cpu"),
+            capacity(max_points=cfg.capacity.max_points + 1)),
+        "max_keyframes": lambda: sharded_step.make_sharded_slam_step(
+            mesh.make_mesh(n_landmark=1, n_kf=world, device_type="cpu"),
+            capacity(max_keyframes=cfg.capacity.max_keyframes + 1)),
+    }
+    out = {}
+    for name, fn in cases.items():
+        try:
+            fn()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def job_sharded_step(rank, world, tmp, args):
+    """`make_sharded_slam_step` on an args["mesh"] = (n_lm, n_kf) mesh of
+    args["device"] ("cpu" or "cuda") from the state in `steady.npz` over
+    the frames in `frames.npz` (kf_every = args["kf_every"]; the last three
+    frames through `make_sharded_slam_chunk`, a chunk each), the
+    replicated state checked across the ranks after every frame. Rank 0
+    writes the per-frame poses, keyframe decisions and inlier counts and
+    the gathered final state to `sharded_<n_lm>x<n_kf>.npz`; each rank the
+    shapes of its blocks and whether its `kf_rows` read the gathered map's
+    rows to `blocks_<n_lm>x<n_kf>_<rank>.json`; with args["errors"], rank
+    0 also what the step raises on meshes and capacities that do not fit,
+    to `errors.json`."""
+    import torch
+    from eao_fusion_tpu_torch.parallel import mesh, sharded_step
+    from eao_fusion_tpu_torch.pipeline import tracking
+    cfg, device = args["cfg"], args.get("device", "cpu")
+    n_lm, n_kf = args["mesh"]
+    tag = f"{n_lm}x{n_kf}"
+    dm = mesh.make_mesh(n_lm, n_kf, device_type=device)
+    st = load_steady(os.path.join(tmp, "steady.npz"), cfg, device)
+    sst = sharded_step.shard_state(st, dm)
+    step = sharded_step.make_sharded_slam_step(dm, cfg,
+                                               kf_every=args["kf_every"])
+    chunk = sharded_step.make_sharded_slam_chunk(dm, cfg,
+                                                 kf_every=args["kf_every"])
+    fr = np.load(os.path.join(tmp, "frames.npz"))
+    per = {"pose": [], "kf_inserted": [], "n_inliers": []}
+    n = len(fr["ts"])
+    for t in range(n):
+        if t < n - 3:
+            sst, diag = step(sst, fr["gray"][t], fr["depth"][t],
+                             fr["boxes"][t], fr["ts"][t])
+        else:       # the last three frames through the chunk, one a chunk
+            sst, diag = chunk(sst, *(fr[k][t:t + 1] for k in (
+                "gray", "depth", "boxes", "ts")))
+            diag = {k: v[0] for k, v in diag.items()}
+            assert diag["pose"].equal(sst.ts.pose)
+        sharded_step.assert_replicated(sst)
+        per["pose"].append(sst.ts.pose.cpu().numpy())
+        per["kf_inserted"].append(bool(diag["kf_inserted"]))
+        per["n_inliers"].append(int(diag["n_inliers"]))
+    whole = sharded_step.unshard_state(sst)
+    names = ("kf_pt_idx", "kf_kp_valid", "kf_desc_pm1", "kf_kp_angle")
+    K, K_loc = whole.m.max_kf, sst.maps.K_loc
+    kf_rows_equal = all(
+        torch.equal(a, b) for k in {0, K_loc - 1, K_loc % K, K - 1}
+        for a, b in zip(sst.maps.kf_rows(sst.m, k, names),
+                        tracking.WHOLE.kf_rows(whole.m, k, names)))
+    with open(os.path.join(tmp, f"blocks_{tag}_{rank}.json"), "w") as f:
+        json.dump({"pt_xyz": list(sst.m.pt_xyz.shape),
+                   "pt_desc_pm1": list(sst.m.pt_desc_pm1.shape),
+                   "kf_pose": list(sst.m.kf_pose.shape),
+                   "kf_desc_pm1": list(sst.m.kf_desc_pm1.shape),
+                   "obs_ind": list(sst.m.obs_ind.shape),
+                   "pl_coeff": list(sst.m.pl_coeff.shape),
+                   "coord": list(sst.maps.coord),
+                   "kf_rows_equal": kf_rows_equal}, f)
+    errors = _sharded_errors(cfg, world) if args.get("errors") else None
+    if rank == 0:
+        np.savez(os.path.join(tmp, f"sharded_{tag}.npz"),
+                 **{f"per.{k}": np.asarray(v) for k, v in per.items()},
+                 **run_record(whole))
+        if errors is not None:
+            with open(os.path.join(tmp, "errors.json"), "w") as f:
+                json.dump(errors, f)
+
+
+def job_allreduce_payload(rank, world, tmp, args):
+    """`distributed_bundle_adjust` (one phase of args["n_iters"] LM
+    iterations) on the problem in `<args["name"]>.npz`, with every call of
+    `dist_ba._all_sum`, the module's one all-reduce, recorded; rank 0
+    writes [dtype, numel, bytes] of each call, in order, to
+    `<name>_payload.json`."""
+    from eao_fusion_tpu_torch.config import SolverConfig
+    from eao_fusion_tpu_torch.parallel import dist_ba, mesh
+    calls = []
+    all_sum = dist_ba._all_sum
+
+    def recorded(t, group):
+        calls.append([str(t.dtype), t.numel(), t.numel() * t.element_size()])
+        return all_sum(t, group)
+
+    dist_ba._all_sum = recorded
+    try:
+        prob, _ = load_problem(os.path.join(tmp, f"{args['name']}.npz"))
+        dist_ba.distributed_bundle_adjust(
+            prob, mesh.make_mesh(), cam=tuple(args["cam"]),
+            cfg=SolverConfig(), n_iters=args["n_iters"])
+    finally:
+        dist_ba._all_sum = all_sum
+    if rank == 0:
+        with open(os.path.join(tmp, f"{args['name']}_payload.json"),
+                  "w") as f:
+            json.dump(calls, f)
