@@ -133,10 +133,41 @@ Phases (any failure exits non-zero and prints no result line):
      obs_ind; the ms per frame (tracked and keyframe medians), the
      collectives' calls, bytes and ms, each rank's resident and peak
      bytes;
+ 25-29. the JAX package's long-run and sensor-robustness contracts, each
+     with its JAX test's configuration, input and bounds
+     (tests/torch_contracts.py). Their noiseless inputs are rendered first,
+     in one pool of 8 spawned processes (`synthetic.render_sequences`, kept
+     under build/synth_cache; two tour frames held to a serial render):
+ 25. lifecycle, loop closing on: (a) endurance, frames 0-505 of the
+     625-frame seed-0 tour into 24 keyframe and 3072 point slots, 512
+     keypoint slots (tests/test_endurance.py: <= 10 weak frames, no reset,
+     live points <= 3072, 0 < live keyframes <= 24, corrected ATE < 5 cm,
+     the second half's < 3x the first's); (b) exploration, the 240-frame
+     seed-5 corridor at 320x240 (tests/test_kf_lifecycle.py:185-215:
+     lifetime keyframes > 24, next_kf <= 24, no reset, <= 10 weak frames,
+     corrected ATE < 10 cm); the occupancy every 50 frames, the loop
+     closer's bow rows after the run's remaps, the median tracking and
+     keyframe frame ms, the peak memory after frame 100 and at the end;
+ 26. point compaction inside `process_frame`, objects on with boxes, 64
+     keyframe and 1024 point slots, on the 20-frame arc
+     (tests/test_compaction.py:15-37: a compaction, ATE < 3 cm, > 60
+     inliers on the last frame); `cull_keyframes` on the card against the
+     CPU on the redundant map of tests/test_compaction.py:74-118;
+ 27. the nuisance suite (tests/test_nuisance_e2e.py): RGBD under each of
+     five profiles (their ATE floors, <= 2 weak frames), mono under
+     `combo` (scale-aligned ATE < 8 cm), BoW retrieval of `combo` views
+     against the clean map (covisible top-1 >= 80%), the detector's recall
+     under `combo` (>= max(0.4, half the clean recall));
+ 28. crowded-map retrieval: the 256-keyframe BoW database over 8 spin
+     scenes through tests/torch_retrieval_harness.py on the card, its
+     whole dict and the floors of tests/test_retrieval_stress.py;
+ 29. odometry (tests/test_tracking_e2e.py:15-53): the 15-frame seed-3
+     forward run (ATE < 3 cm) and the 12-frame seed-5 arc with 1 cm depth
+     noise (ATE < 5 cm); each of 25-29 prints its wall seconds;
  19. last, one JSON line with every kernel's numbers (launches from phase
      7), the `nvidia-smi` line, and as the last line {"ok": true,
      "device": {...}}.
-Phases 6-9, 11-13, 14-17, 21 and 24 each set the launch counts to 0 just
+Phases 6-9, 11-13, 14-17, 21, 24 and 25-29 each set the launch counts to 0 just
 before they drive the System or the steady step (in 14 and 14b: the
 chunks; in 17: each CLI run; in 22: the threaded runs; in 24: the 12
 frames, in each rank) and read them just after; each holds K1 to two
@@ -865,10 +896,12 @@ def lane_summary(calls):
 
 def run_system(cfg, seq, tag: str, corrected: bool = False,
                boxes: bool = False, timers: bool = False, on_system=None,
-               mono: bool = False, rights=None):
+               mono: bool = False, rights=None, on_frame=None,
+               frame_log: bool = True):
     """Drive `System(cfg)` on the card over `seq`, the launch counts set to
     0 just before and read just after; `on_system(s)` is called on the new
-    System before its first frame; `boxes` passes each frame's
+    System before its first frame, `on_frame(s, i)` after frame i (outside
+    the frame's time); `frame_log` prints every frame's ms; `boxes` passes each frame's
     rendered boxes as offline boxes, `timers` times the object lane's
     stages; `mono` passes no depth, `rights` passes right images and no
     depth. Returns the System, its summary (ATE of the raw or, with
@@ -914,6 +947,8 @@ def run_system(cfg, seq, tag: str, corrected: bool = False,
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t) * 1e3)
             is_kf.append(s.n_keyframes > n_kf)
+            if on_frame is not None:
+                on_frame(s, i)
         counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
 
@@ -967,7 +1002,9 @@ def run_system(cfg, seq, tag: str, corrected: bool = False,
     if timers:
         summary["object_lane"] = lane_summary(calls)
     log(f"{tag}: " + json.dumps(summary))
-    log(f"{tag} per-frame ms: " + json.dumps([round(m, 2) for m in frame_ms]))
+    if frame_log:
+        log(f"{tag} per-frame ms: "
+            + json.dumps([round(m, 2) for m in frame_ms]))
     return s, summary, counts
 
 
@@ -2972,6 +3009,227 @@ def phase_sharded_step(smi_line: str):
     return out
 
 
+# ---------------------------------------------- phases 25-29: the contracts
+# of the JAX package's long-run and sensor-robustness tests
+# (tests/torch_contracts.py states their configurations and bounds)
+
+@functools.lru_cache(maxsize=None)
+def _tests_module(name: str):
+    """A torch-only helper module of this repository's tests/, loaded from
+    its file: a package called `tests` may be installed on the machine and
+    would shadow the repository's, and tests/ stays off sys.path."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SYNTH_CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "synth_cache")
+RENDER_WORKERS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def _contract_inputs():
+    """Every sequence of phases 25-29, rendered once per run: the noiseless
+    ones in one pool of spawned processes (`synthetic.render_sequences`,
+    kept under build/synth_cache), the depth-noise arc serially. Two
+    pooled frames are held to a serial render."""
+    from eao_fusion_tpu_torch.io import synthetic
+    C = _tests_module("torch_contracts")
+    H = _tests_module("torch_retrieval_harness")
+    specs = {"tour": C.ENDURANCE_SPEC, "corridor": C.EXPLORATION_SPEC,
+             "forward": C.FORWARD_SPEC,
+             "arc20": dict(n_frames=N_FRAMES, seed=SEED, style="arc"),
+             "arc24ct": dict(n_frames=24, seed=SEED, style="arc",
+                             class_textures=True)}
+    spins = H.scene_specs()
+    t = time.perf_counter()
+    seqs = synthetic.render_sequences(list(specs.values()) + spins,
+                                      workers=RENDER_WORKERS,
+                                      cache_dir=SYNTH_CACHE)
+    n = sum(len(q.frames) for q in seqs)
+    log(f"contracts: rendered {n} frames of {len(seqs)} sequences in "
+        f"{time.perf_counter() - t:.1f} s (host, {RENDER_WORKERS} "
+        f"processes)")
+    out = dict(zip(specs, seqs))
+    out["spins"] = seqs[len(specs):]
+    t = time.perf_counter()
+    out["arc12n"] = C.depth_noise_arc()
+    log(f"contracts: rendered the 12-frame depth-noise arc in "
+        f"{time.perf_counter() - t:.1f} s (host, serial)")
+    tour = out["tour"]
+    for i in (0, 505):
+        g, d = synthetic.render_frame(tour.scene, tour.camera,
+                                      tour.frames[i].tcw)
+        if not (np.array_equal(g, tour.frames[i].gray)
+                and np.array_equal(d, tour.frames[i].depth)):
+            raise AssertionError(f"pooled tour frame {i} differs from a "
+                                 f"serial render")
+    return out
+
+
+def _occupancy_log(tag, n_frames, marks, every: int = 50):
+    """An `on_frame` that prints the table occupancy every `every` frames
+    and after the last, and notes the peak memory after frame 100."""
+    import torch
+    C = _tests_module("torch_contracts")
+
+    def on_frame(s, i):
+        if (i + 1) % every == 0 or i + 1 == n_frames:
+            log(f"{tag} occupancy: " + json.dumps(C.occupancy(s)))
+        if i + 1 == 100:
+            marks["max_memory_allocated_mb_frame_100"] = (
+                torch.cuda.max_memory_allocated() / 2 ** 20)
+    return on_frame
+
+
+def _contract_run(cfg, seq, tag, check, on_frame=None, **kw):
+    """`run_system` on the card, the contract's `check(s)` and the launch
+    rule; returns the System, its summary and the check's values."""
+    s, summary, counts = run_system(cfg, seq, tag, on_frame=on_frame,
+                                    frame_log=len(seq.frames) <= 40, **kw)
+    out = check(s)
+    _check_launches(counts, summary["tracked_frames"],
+                    summary.get("reloc_pose_solves", 0))
+    log(f"{tag} contract: " + json.dumps(out))
+    return s, summary, out
+
+
+def phase_lifecycle(smi_line: str):
+    """Phase 25: the keyframe and point tables over hundreds of frames,
+    loop closing on. (a) Endurance: frames 0-505 of the 625-frame seed-0
+    tour into 24 keyframe and 3072 point slots (tests/test_endurance.py);
+    (b) exploration: the 240-frame seed-5 corridor at 320x240, a keyframe
+    at least every 6 frames (tests/test_kf_lifecycle.py:185-215). The
+    occupancy every 50 frames, the median tracking and keyframe frame ms,
+    the peak memory after frame 100 and at the end."""
+    C = _tests_module("torch_contracts")
+    t0 = time.perf_counter()
+    inp = _contract_inputs()
+    out = {}
+    for tag, cfg, seq, check in (
+            ("endurance", C.endurance_cfg(), inp["tour"],
+             lambda s: dict(C.check_endurance(s, inp["tour"]),
+                            bow_rows_checked=C.check_bow_rows(s))),
+            ("exploration", C.exploration_cfg(), inp["corridor"],
+             lambda s: dict(C.check_exploration(s, inp["corridor"]),
+                            bow_rows_checked=C.check_bow_rows(s)))):
+        t = time.perf_counter()
+        marks = {}
+        _, summary, res = _contract_run(
+            cfg, seq, tag, check, corrected=True,
+            on_frame=_occupancy_log(tag, len(seq.frames), marks))
+        out[tag] = dict(res, **marks, wall_s=time.perf_counter() - t,
+                        **{k: summary[k] for k in (
+                            "median_tracking_frame_ms",
+                            "median_keyframe_frame_ms",
+                            "max_memory_allocated_mb", "launches")})
+        log(f"{tag}: " + json.dumps(out[tag]))
+    log(f"phase 25 (lifecycle) wall {time.perf_counter() - t0:.1f} s; "
+        f"{smi_line}")
+    return out
+
+
+def phase_compaction_culling(smi_line: str):
+    """Phase 26: (a) point compaction inside `process_frame` with objects
+    on (offline boxes), 64 keyframe and 1024 point slots, loop closing
+    off, on the 20-frame arc (tests/test_compaction.py:15-37); (b)
+    `cull_keyframes` on the redundant map of tests/test_compaction.py:
+    74-86 on the card, the same keyframes as on the CPU and the JAX
+    tests' survivors."""
+    C = _tests_module("torch_contracts")
+    t0 = time.perf_counter()
+    seq = _contract_inputs()["arc20"]
+    next_pts, marks = [], {}
+    occ = _occupancy_log("compaction", len(seq.frames), marks)
+
+    def on_frame(s, i):
+        next_pts.append(int(s.map.next_pt))
+        occ(s, i)
+    _, summary, res = _contract_run(
+        C.compaction_cfg(), seq, "compaction inside process_frame",
+        lambda s: C.check_compaction(s, seq, next_pts), on_frame=on_frame,
+        boxes=True)
+    log("culling, card against CPU: " + json.dumps(C.check_cull_on("cuda")))
+    out = dict(res, median_tracking_frame_ms=summary[
+        "median_tracking_frame_ms"], median_keyframe_frame_ms=summary[
+        "median_keyframe_frame_ms"], max_memory_allocated_mb=summary[
+        "max_memory_allocated_mb"], wall_s=time.perf_counter() - t0)
+    log("phase 26 (compaction and culling): " + json.dumps(out)
+        + f"; {smi_line}")
+    return out
+
+
+def phase_nuisance(smi_line: str):
+    """Phase 27: the nuisance suite of tests/test_nuisance_e2e.py on the
+    card: RGBD under each of the five profiles, mono under `combo`, BoW
+    retrieval of `combo` views against the clean map, and the detector's
+    recall under `combo`."""
+    from eao_fusion_tpu_torch.io import synthetic
+    C = _tests_module("torch_contracts")
+    t0 = time.perf_counter()
+    inp = _contract_inputs()
+    seq = inp["arc20"]
+    out = {}
+    for profile in sorted(C.RGBD_FLOORS):
+        nseq = synthetic.nuisance_sequence(seq, profile, seed=0)
+        _, _, out[profile] = _contract_run(
+            C.nuisance_cfg(), nseq, f"nuisance {profile}",
+            lambda s, q=nseq, p=profile: C.check_rgbd_nuisance(s, q, p))
+    combo = synthetic.nuisance_sequence(seq, "combo", seed=0)
+    _, _, out["mono_combo"] = _contract_run(
+        C.nuisance_mono_cfg(), combo, "nuisance mono combo",
+        lambda s: C.check_mono_nuisance(s, seq), mono=True)
+    _, _, out["retrieval_combo"] = _contract_run(
+        C.nuisance_cfg(), seq, "nuisance retrieval (clean map)",
+        lambda s: C.check_retrieval_nuisance(s, combo))
+    out["detector_combo"] = C.check_detector_nuisance("cuda",
+                                                      inp["arc24ct"])
+    log("nuisance detector: " + json.dumps(out["detector_combo"]))
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 27 (nuisance) wall {out['wall_s']:.1f} s; {smi_line}")
+    return out
+
+
+def phase_crowded_retrieval(smi_line: str):
+    """Phase 28: the crowded 256-keyframe BoW database of
+    tests/test_retrieval_stress.py through the port's harness
+    (tests/torch_retrieval_harness.py), extracted and scored on the card;
+    the harness's whole dict and its floors."""
+    H = _tests_module("torch_retrieval_harness")
+    t0 = time.perf_counter()
+    spins = _contract_inputs()["spins"]
+    db = H.build_retrieval_db(spins, device="cuda")
+    m = H.measure_retrieval(db, device="cuda")
+    log("crowded retrieval: " + json.dumps(m))
+    H.check_floors(m)
+    log(f"phase 28 (crowded retrieval) wall "
+        f"{time.perf_counter() - t0:.1f} s; {smi_line}")
+    return m
+
+
+def phase_odometry(smi_line: str):
+    """Phase 29: tests/test_tracking_e2e.py's two short uncached contracts:
+    the 15-frame seed-3 forward run (ATE < 3 cm) and the 12-frame seed-5
+    arc with 1 cm depth noise (ATE < 5 cm), `small_cfg`."""
+    C = _tests_module("torch_contracts")
+    t0 = time.perf_counter()
+    inp = _contract_inputs()
+    out = {}
+    for tag, seq, bound_m in (("forward", inp["forward"], 0.03),
+                              ("depth noise", inp["arc12n"], 0.05)):
+        _, _, out[tag] = _contract_run(
+            C.odometry_cfg(), seq, f"odometry {tag}",
+            lambda s, q=seq, b=bound_m: C.check_odometry(s, q, b))
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 29 (odometry) wall {out['wall_s']:.1f} s; {smi_line}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3031,6 +3289,11 @@ def main() -> int:
         phase_eval()
         phase_vocab()
         phase_sharded_step(smi_line)
+        phase_lifecycle(smi_line)
+        phase_compaction_culling(smi_line)
+        phase_nuisance(smi_line)
+        phase_crowded_retrieval(smi_line)
+        phase_odometry(smi_line)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -11,6 +11,7 @@ reads and writes the same cache files.
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -433,6 +434,48 @@ def make_trajectory(n_frames: int, style: str = "arc") -> np.ndarray:
     return np.stack(poses)
 
 
+def _scene(style: str, seed: int, n_frames: int, n_objects: int,
+           texture: str, class_textures: bool) -> Scene:
+    if style == "corridor":
+        return make_corridor_scene(seed=seed, length_m=0.05 * n_frames + 4.0,
+                                   n_objects=n_objects)
+    return make_room_scene(seed=seed, n_objects=n_objects,
+                           closed=style in ("spin", "spin15", "tour"),
+                           texture=texture, class_textures=class_textures)
+
+
+def _cache_key(n_frames, seed, style, depth_noise, n_objects, texture,
+               class_textures, cam: CameraConfig) -> str:
+    tex_tag = "" if texture == "blocky" else f"_t{texture}"
+    ct_tag = "_ct3" if class_textures else ""   # v3: low-freq band classes
+    return (f"seq_v3_n{n_frames}_s{seed}_{style}_dn{depth_noise}"
+            f"_o{n_objects}{tex_tag}{ct_tag}_{cam.width}x{cam.height}"
+            f"_f{cam.fx:.1f}")
+
+
+def _load_frames(path: str) -> List[SyntheticFrame]:
+    z = np.load(path, allow_pickle=True)
+    # materialize each array once: indexing the lazy NpzFile per frame
+    # decompresses the whole stack again on every access
+    gray, depth = z["gray"], z["depth"]
+    tcw, ts = z["tcw"], z["ts"]
+    return [SyntheticFrame(gray=gray[i], depth=depth[i], tcw=tcw[i],
+                           timestamp=float(ts[i]), boxes=z["boxes_%d" % i])
+            for i in range(int(z["n"]))]
+
+
+def _save_frames(path: str, frames: List[SyntheticFrame]) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    payload = {"n": len(frames),
+               "gray": np.stack([f.gray for f in frames]),
+               "depth": np.stack([f.depth for f in frames]),
+               "tcw": np.stack([f.tcw for f in frames]),
+               "ts": np.array([f.timestamp for f in frames])}
+    for i, f in enumerate(frames):
+        payload["boxes_%d" % i] = f.boxes
+    np.savez_compressed(path, **payload)
+
+
 def generate_sequence(n_frames: int = 30, seed: int = 0, style: str = "arc",
                       camera: Optional[CameraConfig] = None,
                       depth_noise: float = 0.0, n_objects: int = 4,
@@ -443,31 +486,13 @@ def generate_sequence(n_frames: int = 30, seed: int = 0, style: str = "arc",
     A cache directory, keyed on all generation parameters, saves the
     rendering on later calls."""
     cam = camera or CameraConfig()
-    closed = style in ("spin", "spin15", "tour")
-    tex_tag = "" if texture == "blocky" else f"_t{texture}"
-    ct_tag = "_ct3" if class_textures else ""   # v3: low-freq band classes
-    key = (f"seq_v3_n{n_frames}_s{seed}_{style}_dn{depth_noise}_o{n_objects}"
-           f"{tex_tag}{ct_tag}_{cam.width}x{cam.height}_f{cam.fx:.1f}.npz")
+    key = _cache_key(n_frames, seed, style, depth_noise, n_objects, texture,
+                     class_textures, cam) + ".npz"
     path = os.path.join(cache_dir, key) if cache_dir else None
-    if style == "corridor":
-        scene = make_corridor_scene(seed=seed,
-                                    length_m=0.05 * n_frames + 4.0,
-                                    n_objects=n_objects)
-    else:
-        scene = make_room_scene(seed=seed, n_objects=n_objects,
-                                closed=closed, texture=texture,
-                                class_textures=class_textures)
+    scene = _scene(style, seed, n_frames, n_objects, texture, class_textures)
     if path and os.path.exists(path):
-        z = np.load(path, allow_pickle=True)
-        # materialize each array once: indexing the lazy NpzFile per frame
-        # decompresses the whole stack again on every access
-        gray, depth = z["gray"], z["depth"]
-        tcw, ts = z["tcw"], z["ts"]
-        frames = [SyntheticFrame(gray=gray[i], depth=depth[i],
-                                 tcw=tcw[i], timestamp=float(ts[i]),
-                                 boxes=z["boxes_%d" % i])
-                  for i in range(int(z["n"]))]
-        return SyntheticSequence(frames=frames, camera=cam, scene=scene)
+        return SyntheticSequence(frames=_load_frames(path), camera=cam,
+                                 scene=scene)
 
     tcws = make_trajectory(n_frames, style)
     r = np.random.default_rng(seed + 1)
@@ -478,16 +503,106 @@ def generate_sequence(n_frames: int = 30, seed: int = 0, style: str = "arc",
         frames.append(SyntheticFrame(gray=gray, depth=depth, tcw=tcws[i],
                                      timestamp=i / fps, boxes=boxes))
     if path:
-        os.makedirs(cache_dir, exist_ok=True)
-        payload = {"n": n_frames,
-                   "gray": np.stack([f.gray for f in frames]),
-                   "depth": np.stack([f.depth for f in frames]),
-                   "tcw": np.stack([f.tcw for f in frames]),
-                   "ts": np.array([f.timestamp for f in frames])}
-        for i, f in enumerate(frames):
-            payload["boxes_%d" % i] = f.boxes
-        np.savez_compressed(path, **payload)
+        _save_frames(path, frames)
     return SyntheticSequence(frames=frames, camera=cam, scene=scene)
+
+
+_THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+def _pool_init() -> None:
+    torch.set_num_threads(1)
+
+
+_worker_scene = functools.lru_cache(maxsize=4)(_scene)
+
+
+def _pool_render(task):
+    scene_args, cam, tcw = task
+    scene = _worker_scene(*scene_args)
+    gray, depth = render_frame(scene, cam, tcw)
+    return gray, depth, project_boxes(scene, cam, tcw)
+
+
+def render_sequences(specs: List[dict], workers: int = 8,
+                     cache_dir: Optional[str] = None
+                     ) -> List[SyntheticSequence]:
+    """Several sequences in one pool of `workers` spawned processes. Each
+    spec takes `generate_sequence`'s arguments but `depth_noise`
+    (`n_frames`, `seed`, `style`, `camera`, `n_objects`, `fps`,
+    `texture`, `class_textures`) and `frames`, the frame numbers to
+    render (all by default). Frame i is `generate_sequence`'s frame i bit
+    for bit, its timestamp i / fps: without depth noise `render_frame`
+    draws no randoms, so the frames are independent. Each worker builds a
+    scene once. A `cache_dir` keeps a whole sequence in
+    `generate_sequence`'s own file, and a subset under that key and a
+    digest of its frame list."""
+    import hashlib
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    jobs, tasks, out = [], [], []
+    for spec in specs:
+        spec = dict(spec)
+        n = spec.pop("n_frames")
+        sel = spec.pop("frames", None)
+        sel = list(range(n)) if sel is None else [int(i) for i in sel]
+        if not all(0 <= i < n for i in sel):
+            raise ValueError(f"frames outside 0..{n - 1}")
+        cam = spec.pop("camera", None) or CameraConfig()
+        fps = spec.pop("fps", 30.0)
+        scene_args = (spec.pop("style", "arc"), spec.pop("seed", 0), n,
+                      spec.pop("n_objects", 4), spec.pop("texture", "blocky"),
+                      spec.pop("class_textures", False))
+        if spec:
+            raise TypeError(f"unknown arguments {sorted(spec)}")
+        style, seed, _, n_obj, texture, ct = scene_args
+        path = None
+        if cache_dir:
+            key = _cache_key(n, seed, style, 0.0, n_obj, texture, ct, cam)
+            if sel != list(range(n)):
+                digest = hashlib.sha1(np.asarray(sel, np.int64).tobytes())
+                key += f"_sel{len(sel)}-{digest.hexdigest()[:10]}"
+            path = os.path.join(cache_dir, key + ".npz")
+        cached = bool(path) and os.path.exists(path)
+        tcws = make_trajectory(n, style)
+        jobs.append((scene_args, cam, sel, tcws, fps, path, cached,
+                     len(tasks)))
+        if not cached:
+            tasks += [(scene_args, cam, tcws[i]) for i in sel]
+    rendered = []
+    if tasks:
+        # one BLAS thread a worker: the workers are spawned with this
+        # environment
+        saved = {k: os.environ.get(k) for k in _THREAD_VARS}
+        os.environ.update({k: "1" for k in _THREAD_VARS})
+        try:
+            # a worker that dies fails the call (BrokenProcessPool), where
+            # a multiprocessing.Pool would wait for it forever
+            with ProcessPoolExecutor(
+                    max(1, min(workers, len(tasks))),
+                    mp_context=multiprocessing.get_context("spawn"),
+                    initializer=_pool_init) as pool:
+                rendered = list(pool.map(_pool_render, tasks, chunksize=2))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    for scene_args, cam, sel, tcws, fps, path, cached, first in jobs:
+        scene = _scene(*scene_args)
+        if cached:
+            frames = _load_frames(path)
+        else:
+            frames = [SyntheticFrame(gray=g, depth=d, tcw=tcws[i],
+                                     timestamp=i / fps, boxes=b)
+                      for i, (g, d, b) in zip(
+                          sel, rendered[first:first + len(sel)])]
+            if path:
+                _save_frames(path, frames)
+        out.append(SyntheticSequence(frames=frames, camera=cam, scene=scene))
+    return out
 
 
 def apply_nuisance(gray: np.ndarray, depth: np.ndarray,

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of `eao_fusion_tpu_torch`, and not
-`chip_smoke.py`, imports JAX or the JAX package (checked on the import
-statements themselves, since comments name their JAX counterparts)."""
+"""The port stands alone: no module of `eao_fusion_tpu_torch`, not
+`chip_smoke.py` and not the test helpers it imports, imports JAX or the
+JAX package (checked on the import statements themselves, since comments
+name their JAX counterparts)."""
 
 import ast
 import pathlib
@@ -12,7 +13,8 @@ FORBIDDEN = ("jax", "jaxlib", "eao_fusion_tpu")
 FILES = sorted(
     str(p.relative_to(ROOT))
     for p in (ROOT / "eao_fusion_tpu_torch").rglob("*.py")) + [
-        "chip_smoke.py"]
+        "chip_smoke.py", "tests/torch_contracts.py",
+        "tests/torch_retrieval_harness.py"]
 
 
 def _imported(path):
