@@ -137,7 +137,7 @@ Phases (any failure exits non-zero and prints no result line):
      with its JAX test's configuration, input and bounds
      (tests/torch_contracts.py). Their noiseless inputs are rendered first,
      in one pool of 8 spawned processes (`synthetic.render_sequences`, kept
-     under build/synth_cache; two tour frames held to a serial render):
+     under build/synth_cache; three tour frames held to a serial render):
  25. lifecycle, loop closing on: (a) endurance, frames 0-505 of the
      625-frame seed-0 tour into 24 keyframe and 3072 point slots, 512
      keypoint slots (tests/test_endurance.py: <= 10 weak frames, no reset,
@@ -164,11 +164,24 @@ Phases (any failure exits non-zero and prints no result line):
  29. odometry (tests/test_tracking_e2e.py:15-53): the 15-frame seed-3
      forward run (ATE < 3 cm) and the 12-frame seed-5 arc with 1 cm depth
      noise (ATE < 5 cm); each of 25-29 prints its wall seconds;
+ 30. the JAX package's fr3-scale production run (dev/run_fr3_scale.py)
+     through dev/torch_run_fr3_scale.py's `run_scale`: 2 replays of the
+     whole 625-frame tour, planes, objects (the renderer's boxes) and
+     loop closing on, 256 keyframe and 16384 point slots, 12
+     `process_frame` frames then chunks of 8 through `slam_chunk` and
+     `chunk_epilogue`: no reset, >= 1 loop and GBA merge, >= 1 keyframe
+     and point compaction, > 256 lifetime keyframe insertions, the live
+     tables within their slots, a loop closed at a chunk boundary after
+     the first keyframe compaction (else 3 laps), raw ATE < 5 cm,
+     corrected <= raw + 0.5 cm, no live keyframe over 50 cm from its
+     ground truth, the bow rows after the remaps; the JAX script's record
+     (the ATE printed beside the JAX record) and the port's event log,
+     the median chunk and epilogue ms;
  19. last, one JSON line with every kernel's numbers (launches from phase
      7), the `nvidia-smi` line, and as the last line {"ok": true,
      "device": {...}}.
-Phases 6-9, 11-13, 14-17, 21, 24 and 25-29 each set the launch counts to 0 just
-before they drive the System or the steady step (in 14 and 14b: the
+Phases 6-9, 11-13, 14-17, 21, 24 and 25-30 each set the launch counts to 0 just
+before they drive the System or the steady step (in 14, 14b and 30: the
 chunks; in 17: each CLI run; in 22: the threaded runs; in 24: the 12
 frames, in each rank) and read them just after; each holds K1 to two
 launches per tracked frame plus one per relocalization pose solve and K4
@@ -3014,17 +3027,22 @@ def phase_sharded_step(smi_line: str):
 # (tests/torch_contracts.py states their configurations and bounds)
 
 @functools.lru_cache(maxsize=None)
-def _tests_module(name: str):
-    """A torch-only helper module of this repository's tests/, loaded from
+def _repo_module(subdir: str, name: str):
+    """A torch-only module of this repository's tests/ or dev/, loaded from
     its file: a package called `tests` may be installed on the machine and
-    would shadow the repository's, and tests/ stays off sys.path."""
+    would shadow the repository's, and neither directory goes on
+    sys.path."""
     import importlib.util
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), subdir,
                         name + ".py")
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _tests_module(name: str):
+    return _repo_module("tests", name)
 
 
 SYNTH_CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -3034,14 +3052,16 @@ RENDER_WORKERS = 8
 
 @functools.lru_cache(maxsize=None)
 def _contract_inputs():
-    """Every sequence of phases 25-29, rendered once per run: the noiseless
+    """Every sequence of phases 25-30, rendered once per run: the noiseless
     ones in one pool of spawned processes (`synthetic.render_sequences`,
-    kept under build/synth_cache), the depth-noise arc serially. Two
-    pooled frames are held to a serial render."""
+    kept under build/synth_cache), the whole 625-frame tour among them,
+    the depth-noise arc serially. Three pooled tour frames (the first, the
+    endurance contract's last and the lap's last) are held to a serial
+    render."""
     from eao_fusion_tpu_torch.io import synthetic
     C = _tests_module("torch_contracts")
     H = _tests_module("torch_retrieval_harness")
-    specs = {"tour": C.ENDURANCE_SPEC, "corridor": C.EXPLORATION_SPEC,
+    specs = {"tour": C.TOUR_SPEC, "corridor": C.EXPLORATION_SPEC,
              "forward": C.FORWARD_SPEC,
              "arc20": dict(n_frames=N_FRAMES, seed=SEED, style="arc"),
              "arc24ct": dict(n_frames=24, seed=SEED, style="arc",
@@ -3062,7 +3082,7 @@ def _contract_inputs():
     log(f"contracts: rendered the 12-frame depth-noise arc in "
         f"{time.perf_counter() - t:.1f} s (host, serial)")
     tour = out["tour"]
-    for i in (0, 505):
+    for i in (0, C.ENDURANCE_FRAMES - 1, len(tour.frames) - 1):
         g, d = synthetic.render_frame(tour.scene, tour.camera,
                                       tour.frames[i].tcw)
         if not (np.array_equal(g, tour.frames[i].gray)
@@ -3111,9 +3131,10 @@ def phase_lifecycle(smi_line: str):
     t0 = time.perf_counter()
     inp = _contract_inputs()
     out = {}
+    endurance = C.endurance_sequence(inp["tour"])
     for tag, cfg, seq, check in (
-            ("endurance", C.endurance_cfg(), inp["tour"],
-             lambda s: dict(C.check_endurance(s, inp["tour"]),
+            ("endurance", C.endurance_cfg(), endurance,
+             lambda s: dict(C.check_endurance(s, endurance),
                             bow_rows_checked=C.check_bow_rows(s))),
             ("exploration", C.exploration_cfg(), inp["corridor"],
              lambda s: dict(C.check_exploration(s, inp["corridor"]),
@@ -3230,6 +3251,117 @@ def phase_odometry(smi_line: str):
     return out
 
 
+# ------------------------ phase 30: the fr3-scale production run of the
+# JAX package (dev/run_fr3_scale.py) through dev/torch_run_fr3_scale.py
+
+FR3_LAPS = 2
+FR3_CHUNK = 8
+
+
+def _loop_after_compaction(ev: dict) -> bool:
+    """A loop closed at a chunk boundary after the first keyframe
+    compaction (`run_scale`'s event log)."""
+    first = ev["kf_compaction"][0] if ev["kf_compaction"] else None
+    return first is not None and any(isinstance(c, int) and c > first
+                                     for c in ev["loop"])
+
+
+def check_fr3_scale(out: dict, cap) -> None:
+    """The bounds of phase 30 on `run_scale`'s record (`cap`, the map
+    capacity): no reset; a loop closed and a GBA merged; both tables
+    compacted, more lifetime keyframe insertions than slots, the live
+    keyframes and points within their tables; a loop closed at a chunk
+    boundary after the first keyframe compaction; the whole run's raw ATE
+    under 5 cm (VERDICT.md's target; the JAX record on these frames, 4.08
+    cm), the corrected ATE finite and at most 0.5 cm over the raw (phase
+    12's bound), no live keyframe over 50 cm from its ground truth at the
+    end; the launch rule of the chunked part."""
+    ev = out["events"]
+    fails = []
+    if out["n_resets"]:
+        fails.append(f"{out['n_resets']} resets")
+    if out["loops_closed"] < 1 or out["gba_merges"] < 1:
+        fails.append("no loop closed or no GBA merged")
+    if out["kf_compactions"] < 1 or out["pt_compactions"] < 1:
+        fails.append("a table never compacted")
+    if not out["lifetime_kf_insertions"] > cap.max_keyframes:
+        fails.append(f"{out['lifetime_kf_insertions']} lifetime keyframe "
+                     f"insertions (> {cap.max_keyframes})")
+    if not (out["peak_kf_live"] <= cap.max_keyframes
+            and out["peak_points"] <= cap.max_points):
+        fails.append("live keyframes or points over their table")
+    if not _loop_after_compaction(ev):
+        fails.append(f"no loop closed at a chunk boundary after the first "
+                     f"keyframe compaction (loops at {ev['loop']}, "
+                     f"compactions at {ev['kf_compaction']})")
+    raw, cor = out["ate_cm"], out["ate_corrected_cm"]
+    if not raw < 5.0:
+        fails.append(f"raw ATE {raw:.3f} cm (< 5)")
+    if not (np.isfinite(cor) and cor <= raw + 0.5):
+        fails.append(f"corrected ATE {cor:.3f} cm (<= raw + 0.5)")
+    if out["kf_gt_err_cm"]["over_50"]:
+        fails.append(f"{out['kf_gt_err_cm']['over_50']} live keyframes "
+                     f"over 50 cm from their ground truth (the farthest "
+                     f"{out['kf_gt_err_cm']['max']:.1f} cm)")
+    if fails:
+        raise AssertionError("fr3 scale: " + "; ".join(fails))
+    _check_launches(out["launches"], out["chunked_frames"],
+                    out["reloc_pose_solves"])
+
+
+def phase_fr3_scale(smi_line: str):
+    """Phase 30: the JAX package's fr3-scale production run on the port:
+    FR3_LAPS replays (FR3_LAPS + 1 when no loop closes after the first
+    keyframe compaction) of the whole 625-frame seed-0 tour (the pooled
+    render of phases 25-29), the JAX script's configuration (planes,
+    objects with the renderer's boxes, loop closing; 256 keyframe and
+    16384 point slots), 12 `process_frame` frames, then chunks of 8
+    through `slam_chunk` and `chunk_epilogue` (`run_scale`, the launch
+    counts set to 0 before the first chunk and read after the last). The
+    bounds of `check_fr3_scale`, and the loop closer's bow rows after the
+    run's remaps; prints the record, the median chunk and epilogue ms and
+    the card."""
+    from eao_fusion_tpu_torch.pipeline.system import System
+    R = _repo_module("dev", "torch_run_fr3_scale")
+    C = _tests_module("torch_contracts")
+    t0 = time.perf_counter()
+    tour = _contract_inputs()["tour"]
+    cfg = R.scale_cfg()
+    if not (cfg.use_planes and cfg.use_objects and cfg.use_loop_closing):
+        raise AssertionError("the fr3-scale configuration has planes, "
+                             "objects or loop closing off")
+    for laps in (FR3_LAPS, FR3_LAPS + 1):
+        s = System(cfg)
+        if s.device.type != "cuda":
+            raise AssertionError(f"System runs on {s.device}, not on the "
+                                 f"card")
+        out = R.run_scale(s, tour, laps, FR3_CHUNK,
+                          progress=lambda m: log(f"fr3 scale: {m}"))
+        if _loop_after_compaction(out["events"]):
+            break
+        log(f"phase 30 (fr3 scale): no loop after the first keyframe "
+            f"compaction in {laps} laps ({out['events']}); once more, "
+            f"{laps + 1} laps")
+    out["bow_rows_checked"] = C.check_bow_rows(s)
+    out["loop_stats"] = dict(s.loop_closer.stats)
+    out["laps"] = laps
+    out["wall_s"] = time.perf_counter() - t0
+    log("fr3 scale (phase 30): " + json.dumps(out, default=float))
+    log(f"phase 30 (fr3 scale): raw ATE {out['ate_cm']:.3f} cm, corrected "
+        f"{out['ate_corrected_cm']:.3f}, per lap {out['lap_ate_cm']}, live "
+        f"keyframes from their ground truth {out['kf_gt_err_cm']} cm; the "
+        f"JAX package on the same frames: 4.08 cm (TPU, "
+        f"dev/fr3_r5_prewarmfix_2lap.json)")
+    log(f"phase 30 (fr3 scale): median chunk of {FR3_CHUNK} "
+        f"{out['median_chunk_ms']:.2f} ms, median epilogue "
+        f"{out['median_epilogue_ms']:.2f} ms, p50 / p99 / max frame "
+        f"{out['p50_frame_ms']:.2f} / {out['p99_frame_ms']:.2f} / "
+        f"{out['max_frame_ms']:.2f} ms, wall {out['wall_s']:.1f} s; "
+        f"{smi_line}")
+    check_fr3_scale(out, cfg.capacity)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3294,6 +3426,7 @@ def main() -> int:
         phase_nuisance(smi_line)
         phase_crowded_retrieval(smi_line)
         phase_odometry(smi_line)
+        phase_fr3_scale(smi_line)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -296,8 +296,14 @@ def local_mapping_step(m: MapState, kf_slot: int, *,
     e_cam = (eidx // N).to(torch.int32)
     e_slot = (eidx % N)
     lvl = m.kf_kp_level[kf_idx].reshape(-1)[eidx].float()
-    # freeze under-constrained window cameras
-    starved = obs_ok.sum(dim=1) < cfg.solver.min_cam_obs
+    # freeze under-constrained window cameras, counting the edges the
+    # solver gets: the [E] cap keeps edges in window order, so it can leave
+    # a late camera with none, held by its plane factors alone (a singular
+    # block; local BA then throws that keyframe metres, or to 1e11 m, at the
+    # production tables). The JAX package counts before the cap; below the
+    # cap the two counts are the same.
+    starved = (torch.bincount(e_cam[e_ok].long(), minlength=C)
+               < cfg.solver.min_cam_obs)
     prob = ba.BACooProblem(
         cam_pose=m.kf_pose[kf_idx],
         cam_valid=sel_valid & m.kf_valid[kf_idx],

@@ -90,11 +90,22 @@ def odometry_cfg() -> SystemConfig:
 
 # -------------------------------------------------------------------- inputs
 
-ENDURANCE_SPEC = dict(n_frames=625, seed=0, style="tour",
-                      frames=list(range(506)))
+# the whole 625-frame seed-0 tour, one closed lap (frame 624 is frame 0's
+# pose): the fr3-scale run replays it, the endurance contract takes its
+# first ENDURANCE_FRAMES frames (tests/test_endurance.py:22-25)
+TOUR_SPEC = dict(n_frames=625, seed=0, style="tour")
+ENDURANCE_FRAMES = 506
+ENDURANCE_SPEC = dict(TOUR_SPEC, frames=list(range(ENDURANCE_FRAMES)))
 EXPLORATION_SPEC = dict(n_frames=240, seed=5, style="corridor",
                         camera=SMALL_CAM)
 FORWARD_SPEC = dict(n_frames=15, seed=3, style="forward")
+
+
+def endurance_sequence(tour):
+    """The endurance contract's input: the tour's first ENDURANCE_FRAMES
+    frames."""
+    import dataclasses
+    return dataclasses.replace(tour, frames=tour.frames[:ENDURANCE_FRAMES])
 
 
 def depth_noise_arc():
