@@ -176,7 +176,8 @@ Phases (any failure exits non-zero and prints no result line):
      corrected <= raw + 0.5 cm, no live keyframe over 50 cm from its
      ground truth, the bow rows after the remaps; the JAX script's record
      (the ATE printed beside the JAX record) and the port's event log,
-     the median chunk and epilogue ms;
+     the determinism line (the chunk of the first GBA launch, a digest of
+     the raw poses up to it), the median chunk and epilogue ms;
  19. last, one JSON line with every kernel's numbers (launches from phase
      7), the `nvidia-smi` line, and as the last line {"ok": true,
      "device": {...}}.
@@ -3319,8 +3320,10 @@ def phase_fr3_scale(smi_line: str):
     through `slam_chunk` and `chunk_epilogue` (`run_scale`, the launch
     counts set to 0 before the first chunk and read after the last). The
     bounds of `check_fr3_scale`, and the loop closer's bow rows after the
-    run's remaps; prints the record, the median chunk and epilogue ms and
-    the card."""
+    run's remaps; prints the record, the determinism line (the chunk whose
+    epilogue launched the first GBA and a digest of the raw poses up to
+    it, so that two calls compare from their output), the median chunk
+    and epilogue ms and the card."""
     from eao_fusion_tpu_torch.pipeline.system import System
     R = _repo_module("dev", "torch_run_fr3_scale")
     C = _tests_module("torch_contracts")
@@ -3335,8 +3338,10 @@ def phase_fr3_scale(smi_line: str):
         if s.device.type != "cuda":
             raise AssertionError(f"System runs on {s.device}, not on the "
                                  f"card")
+        chunks = R.ChunkLog(s)
         out = R.run_scale(s, tour, laps, FR3_CHUNK,
-                          progress=lambda m: log(f"fr3 scale: {m}"))
+                          progress=lambda m: log(f"fr3 scale: {m}"),
+                          on_chunk=chunks)
         if _loop_after_compaction(out["events"]):
             break
         log(f"phase 30 (fr3 scale): no loop after the first keyframe "
@@ -3352,6 +3357,13 @@ def phase_fr3_scale(smi_line: str):
         f"keyframes from their ground truth {out['kf_gt_err_cm']} cm; the "
         f"JAX package on the same frames: 4.08 cm (TPU, "
         f"dev/fr3_r5_prewarmfix_2lap.json)")
+    first_gba = chunks.first_gba_launch()
+    log("phase 30 (fr3 scale) determinism: " + json.dumps(dict(
+        first_gba_launch_chunk=first_gba,
+        raw_pose_digest_to_first_gba=(None if first_gba is None
+                                      else chunks.pose_digest(first_gba)),
+        raw_pose_digest=chunks.pose_digest(), loops=out["events"]["loop"],
+        gba_merges=out["events"]["gba_merge"])))
     log(f"phase 30 (fr3 scale): median chunk of {FR3_CHUNK} "
         f"{out['median_chunk_ms']:.2f} ms, median epilogue "
         f"{out['median_epilogue_ms']:.2f} ms, p50 / p99 / max frame "

@@ -83,14 +83,74 @@ def _pad_boxes(b, n: int) -> np.ndarray:
     return out
 
 
-def run_scale(s, seq, laps: int, chunk: int, progress=None) -> dict:
+def digest(*arrays) -> str:
+    """A short hash of the arrays' bytes (tensors are read to the host)."""
+    import hashlib
+    h = hashlib.sha1()
+    for a in arrays:
+        if hasattr(a, "detach"):
+            a = a.detach().cpu().numpy()
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+class ChunkLog:
+    """A `run_scale` `on_chunk` hook that keeps, for every chunk, a digest
+    of its raw poses and of the map fields `fields` after the epilogue,
+    the System's event counters, the GBA launches of the epilogue and
+    whether a GBA is in flight after it. Wraps System `s`'s loop closer
+    to count the launches."""
+
+    COUNTERS = ("n_loops_closed", "n_gba_merges", "n_kf_compactions",
+                "n_pt_compactions", "n_kf_evictions", "n_relocalizations")
+
+    def __init__(self, s, fields=()):
+        self.s, self.fields, self.rows = s, tuple(fields), []
+        self._launched = 0
+        lc = s.loop_closer
+        if lc is not None:
+            launch = lc.launch_gba_async
+
+            def counted(m):
+                self._launched += 1
+                return launch(m)
+            lc.launch_gba_async = counted
+
+    def __call__(self, ci: int, st, diag: dict) -> None:
+        lc = self.s.loop_closer
+        self.rows.append(dict(
+            chunk=ci, pose=digest(diag["pose"]),
+            map={f: digest(getattr(st.m, f)) for f in self.fields},
+            counters=[int(getattr(self.s, c)) for c in self.COUNTERS],
+            gba_launches=self._launched,
+            gba_inflight=bool(lc is not None and lc.gba_inflight())))
+        self._launched = 0
+
+    def first_gba_launch(self):
+        """The chunk whose epilogue launched the first GBA, or None."""
+        return next((r["chunk"] for r in self.rows if r["gba_launches"]),
+                    None)
+
+    def pose_digest(self, last=None) -> str:
+        """One digest of the raw pose digests of chunks 0..`last` (all
+        chunks if None)."""
+        import hashlib
+        return hashlib.sha1("".join(
+            r["pose"] for r in self.rows
+            if last is None or r["chunk"] <= last).encode()).hexdigest()[:16]
+
+
+def run_scale(s, seq, laps: int, chunk: int, progress=None,
+              on_chunk=None) -> dict:
     """Drive System `s` (new) over `laps` replays of `seq`'s frames as the
     JAX script does: `process_frame` on the first 12 at timestamps k / 30,
     then chunks of `chunk` frames at (lo + j) / 30 through `slam_chunk`,
     `record_chunk` and `chunk_epilogue`, the last partial chunk dropped.
     Each unique frame goes to the device once; a chunk is a stack of the
     staged frames. The launch counts are set to 0 just before the first
-    chunk. `progress(msg)` gets a line every 40 chunks. Returns the JAX
+    chunk. `progress(msg)` gets a line every 40 chunks; `on_chunk(index,
+    carry, diagnostics)` is called after every chunk's epilogue (a
+    `ChunkLog`, for instance). Returns the JAX
     script's record (but `prewarm_s`) and the readings named in the
     module's docstring."""
     import torch
@@ -199,6 +259,8 @@ def run_scale(s, seq, laps: int, chunk: int, progress=None) -> dict:
         if far > n_far:
             events["kf_far"].append(ci)
         n_far = far
+        if on_chunk is not None:
+            on_chunk(ci, st, diag)
         peak_kf_live = max(peak_kf_live, int(st.m.kf_valid.sum()))
         peak_pts = max(peak_pts, int(st.m.pt_valid.sum()))
         if progress is not None and ci % 40 == 0:

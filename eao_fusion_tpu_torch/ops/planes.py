@@ -13,8 +13,11 @@ sake is written as what it computes: the window sums are a reshape-sum,
 the pointer jump is the integer gather `lbl[lbl]` (exact), and the
 component refit sums the [G, 13] moments by label in window order
 (`ops/scatter.index_sum`: the same bits in every run, on the card too).
-The moments are sums of z² ≈ 16 m², and `cov = pp/n − μμᵀ` cancels, so
-every sum stays in float32 (the package keeps TF32 off).
+The moments are sums of z² ≈ 16 m², and `cov = pp/n − μμᵀ` cancels: in
+float32 (the JAX package's) the plane of a small, far component moves by
+centimetres with the order of its sums, on the card against the CPU too.
+So the moments, the window fits and the component refit run in float64,
+and the coefficients come out in float32.
 """
 
 from __future__ import annotations
@@ -99,10 +102,10 @@ def _window_moments(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
     gh, gw = H // win, W // win
     G = gh * gw
     Hc, Wc = gh * win, gw * win
-    m = valid[:Hc, :Wc].float()
-    xm = x[:Hc, :Wc] * m
-    ym = y[:Hc, :Wc] * m
-    zm = z[:Hc, :Wc] * m
+    m = valid[:Hc, :Wc].double()
+    xm = x[:Hc, :Wc].double() * m
+    ym = y[:Hc, :Wc].double() * m
+    zm = z[:Hc, :Wc].double() * m
     chans = torch.stack([m, xm, ym, zm, xm * xm, ym * ym, zm * zm,
                          xm * ym, xm * zm, ym * zm])            # [10, Hc, Wc]
     w = chans.reshape(10, gh, win, gw, win).sum(dim=(2, 4)).reshape(10, G)
@@ -118,7 +121,7 @@ def _window_moments(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
 def _fit_from_moments(n, s, pp):
     """Plane fit from (count, sum, sum-outer): normal, d >= 0 (normal toward
     the camera), mse and mean."""
-    nf = torch.clamp(n.float(), min=1.0)
+    nf = torch.clamp(n.to(s.dtype), min=1.0)
     mu = s / nf[:, None]
     cov = pp / nf[:, None, None] - mu[:, :, None] * mu[:, None, :]
     mse, normal = eigh3_smallest(cov)
@@ -185,11 +188,12 @@ def segment_planes(depth: torch.Tensor, *, cam: CameraConfig,
 
     # ---- per-component refit from summed moments ------------------------
     mom = torch.cat([n[:, None], s, pp.reshape(G, 9)], dim=1)     # [G, 13]
-    seg = index_sum(torch.zeros((G + 1, 13), dtype=torch.float32,
+    seg = index_sum(torch.zeros((G + 1, 13), dtype=torch.float64,
                                 device=dev), labels, mom)[:G]
-    seg_n = seg[:, 0]
+    seg_n = seg[:, 0].float()
     seg_normal, seg_d, _, _ = _fit_from_moments(
-        seg_n.to(torch.int32), seg[:, 1:4], seg[:, 4:13].reshape(G, 3, 3))
+        seg[:, 0], seg[:, 1:4], seg[:, 4:13].reshape(G, 3, 3))
+    seg_normal, seg_d = seg_normal.float(), seg_d.float()
     ok = seg_n >= cfg.min_support_px
 
     # the largest components by support

@@ -21,6 +21,7 @@ from eao_fusion_tpu_torch.mapping.map_state import (
     MapState, merge_obs_columns, refresh_obs_rows, set_rows,
     update_point_stats)
 from eao_fusion_tpu_torch.ops import lie
+from eao_fusion_tpu_torch.ops.scatter import put_last
 from eao_fusion_tpu_torch.ops.topk import top_k_stable
 from eao_fusion_tpu_torch.solvers import ba, triangulation
 from eao_fusion_tpu_torch.types import FrameFeatures
@@ -168,8 +169,7 @@ def fuse_neighbors(m: MapState, kf_slot: int, *,
             continue
         winner, loser, add = match_pair(src, dst)
         sel = loser >= 0
-        r = ident.clone()
-        r[loser[sel].long()] = winner[sel].long()
+        r = put_last(ident.clone(), loser[sel], winner[sel].long())
         total = r[total]            # this map applies after the earlier ones
         pt_valid[loser[sel].long()] = False
         adds.append((dst, add))

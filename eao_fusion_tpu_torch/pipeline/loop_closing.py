@@ -56,6 +56,7 @@ from eao_fusion_tpu_torch.frontend import matcher
 from eao_fusion_tpu_torch.mapping import covisibility, plane_map, vocabulary
 from eao_fusion_tpu_torch.mapping.map_state import MapState, refresh_obs_ind
 from eao_fusion_tpu_torch.ops import lie, ransac
+from eao_fusion_tpu_torch.ops.scatter import put_last
 from eao_fusion_tpu_torch.parallel import dist_ba, multihost
 from eao_fusion_tpu_torch.parallel import mesh as pmesh
 from eao_fusion_tpu_torch.solvers import ba, pose_graph
@@ -378,9 +379,9 @@ class LoopCloser:
         loop_pt = res.target_idx.long()
         both = ((loop_pt >= 0) & (cur_pt >= 0) & (loop_pt != cur_pt)
                 & m.pt_valid[torch.clamp(cur_pt, min=0)])
-        remap = torch.arange(P + 1, device=dev)
-        remap[torch.where(both, cur_pt, P)] = torch.where(both, loop_pt, P)
-        remap = remap[:P]
+        remap = put_last(torch.arange(P + 1, device=dev),
+                         torch.where(both, cur_pt, P),
+                         torch.where(both, loop_pt, P))[:P]
         kf_pt = torch.where(m.kf_pt_idx >= 0,
                             remap[torch.clamp(m.kf_pt_idx.long(), min=0)],
                             m.kf_pt_idx.long()).to(torch.int32)

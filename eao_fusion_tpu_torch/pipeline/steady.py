@@ -33,7 +33,8 @@ from eao_fusion_tpu_torch.objects import object_map as om
 from eao_fusion_tpu_torch.objects import update as obj_update
 from eao_fusion_tpu_torch.ops import planes as plane_ops
 from eao_fusion_tpu_torch.pipeline import local_mapping, tracking
-from eao_fusion_tpu_torch.types import FramePlanes, FrameFeatures
+from eao_fusion_tpu_torch.types import (FramePlanes, FrameFeatures,
+                                        tree_from_numpy)
 
 # the per-frame diagnostics that `slam_chunk` stacks (`steady.py:161-167`)
 CHUNK_DIAG = ("n_inliers", "kf_inserted", "kf_trigger", "n_ref",
@@ -181,6 +182,22 @@ def slam_chunk(st: SteadyState, grays: torch.Tensor, depths: torch.Tensor,
     out = {k: (torch.tensor(v, device=grays.device) if k == "kf_inserted"
                else torch.stack(v)) for k, v in per.items()}
     return st, out
+
+
+def steady_state_from_numpy(d, device, generator: torch.Generator
+                            ) -> SteadyState:
+    """SteadyState from the JAX package's steady carry as a dict (or
+    NamedTuple) of numpy arrays or trees of them: the map, the track state,
+    the object table and the last frame objects carried whole; the JAX PRNG
+    key is not carried, the randoms come from `generator`."""
+    if hasattr(d, "_asdict"):
+        d = d._asdict()
+    return SteadyState(
+        m=ms.from_numpy(d["m"], device),
+        ts=tracking.track_state_from_numpy(d["ts"], device),
+        objs=tree_from_numpy(om.ObjectTable, d["objs"], device),
+        last_fo=tree_from_numpy(om.FrameObjects, d["last_fo"], device),
+        frame_id=int(d["frame_id"]), generator=generator)
 
 
 def init_steady_state(system) -> SteadyState:

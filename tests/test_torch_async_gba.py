@@ -129,17 +129,14 @@ def test_async_thread_roundtrip(arc):
     assert s.diags[-1]["n_inliers"] >= 30
 
 
-def test_merge_inflight_keyframes_deterministic(arc):
-    """The twin of tests/test_async_gba.py:52: the GBA solved on the map
-    after frame 17 (the JAX test's frame 20 is cut to what the module's
-    System reaches through the round trip), the System tracking frames
-    18-25, then the merge. Snapshot
-    keyframes take their GBA poses and snapshot points their GBA positions
-    (exactly); keyframes made during the flight keep their reprojection
-    error within 0.05 px of what it was. The snapshot tensors stay as they
-    were while the live map moves on (every map update is out of place)."""
+@pytest.fixture(scope="module")
+def merge_case(arc):
+    """The GBA solved on the module System's map after frame 17 (the JAX
+    test's frame 20 is cut to what the System reaches through the round
+    trip), then the System tracking frames 18-25: (the snapshot map, a
+    clone of its tensors taken at once, the snapshot's validity record,
+    the GBA result, the live map)."""
     s, seq = arc
-    cfg = s.cfg
     _advance(s, seq, 18)
     lc = s.loop_closer
     m_snap = s.map
@@ -148,10 +145,23 @@ def test_merge_inflight_keyframes_deterministic(arc):
             for k in ("kf_frame_id", "kf_valid", "pt_valid", "pl_valid")}
     prob, plane_free = lc._build_gba_problem(m_snap)
     res = lc._run_gba_stages(prob, plane_free)
-    n_kf_snap = int(m_snap.next_kf)
-
     _run(s, seq.frames[18:26])
-    m_live = s.map
+    return m_snap, frozen, snap, res, s.map
+
+
+def test_merge_inflight_keyframes_deterministic(arc, merge_case):
+    """The twin of tests/test_async_gba.py:52: the GBA solved on the map
+    after frame 17, the System tracking frames 18-25, then the merge.
+    Snapshot
+    keyframes take their GBA poses and snapshot points their GBA positions
+    (exactly); keyframes made during the flight keep their reprojection
+    error within 0.05 px of what it was. The snapshot tensors stay as they
+    were while the live map moves on (every map update is out of place)."""
+    s, _ = arc
+    cfg = s.cfg
+    lc = s.loop_closer
+    m_snap, frozen, snap, res, m_live = merge_case
+    n_kf_snap = int(m_snap.next_kf)
     assert int(m_live.next_kf) > n_kf_snap
     for k, v in m_snap._asdict().items():
         assert torch.equal(v, frozen[k]), f"snapshot field {k} changed"
@@ -185,3 +195,69 @@ def test_merge_inflight_keyframes_deterministic(arc):
     sel = snap["pt_valid"] & m_live.pt_valid.numpy()
     np.testing.assert_allclose(merged.pt_xyz.numpy()[sel],
                                res.pt_xyz.numpy()[sel], atol=1e-6)
+
+
+def test_merge_matches_jax_after_point_compaction(arc, merge_case):
+    """The port's `LoopCloser._merge_gba` against the JAX package's on the
+    same live map, snapshot record and GBA result, with a point compaction
+    while the GBA was in flight: the live map compacted and the
+    snapshot-to-live point map its remap (as `note_pt_remap` composes
+    it), which moves snapshot points to other slots. Snapshot keyframes
+    take the same GBA poses exactly, keyframes made in flight lie within
+    1e-4 m of JAX's, every point within 1e-5 m."""
+    import types
+
+    import jax.numpy as jnp
+
+    from eao_fusion_tpu import config as JC
+    from eao_fusion_tpu.mapping import map_state as JMS
+    from eao_fusion_tpu.pipeline import loop_closing as JLC
+    from eao_fusion_tpu_torch.mapping import map_state as TMS
+    s, _ = arc
+    lc = s.loop_closer
+    _, _, snap, res, m_live = merge_case
+    m_c, remap = TMS.compact_points(m_live)
+    remap = remap.numpy().astype(np.int64)
+    moved = snap["pt_valid"] & (remap >= 0) & (remap != np.arange(len(remap)))
+    assert moved.any()                  # a non-identity remap
+    pt_map = np.arange(m_c.max_pt, dtype=np.int64)
+    lc_pm, lc._gba_pt_map = lc._gba_pt_map, pt_map
+    lc.note_pt_remap(remap)
+    pt_map, lc._gba_pt_map = lc._gba_pt_map, lc_pm
+    np.testing.assert_array_equal(pt_map, remap)
+
+    ours = lc._merge_gba(m_c, res, snap, pt_map)
+    jcfg = JC.SystemConfig(
+        orb=JC.ORBConfig(n_features=500, max_keypoints=512),
+        capacity=JC.MapCapacity(max_keyframes=16, max_points=4096,
+                                max_local_ba_kfs=16),
+        tracking=JC.TrackingConfig(max_frames_between_kf=3),
+        use_planes=False, use_objects=False)
+    jm = JMS.MapState(**{k: jnp.asarray(v)
+                         for k, v in TMS.to_numpy(m_c).items()})
+    jres = types.SimpleNamespace(**{
+        k: (None if v is None else v.numpy())
+        for k, v in res._asdict().items()
+        if k in ("cam_pose", "pt_xyz", "pl_coeff")})
+    theirs = JLC.LoopCloser._merge_gba(types.SimpleNamespace(cfg=jcfg), jm,
+                                       jres, snap, pt_map)
+    kv = m_c.kf_valid.numpy()
+    in_snap = np.isin(m_c.kf_frame_id.numpy(),
+                      snap["kf_frame_id"][snap["kf_valid"]]) & kv
+    flight = kv & ~in_snap
+    assert in_snap.sum() >= 3 and flight.any()
+    tk, jk = ours.kf_pose.numpy(), np.asarray(theirs.kf_pose)
+
+    def centre(p):
+        return lie.se3_inverse(torch.as_tensor(p))[:, 4:].numpy()
+    pv = m_c.pt_valid.numpy()
+    kf_diff = np.abs(centre(tk[flight]) - centre(jk[flight])).max()
+    pt_diff = np.abs(ours.pt_xyz.numpy()[pv]
+                     - np.asarray(theirs.pt_xyz)[pv]).max()
+    print({"points_moved_by_the_remap": int(moved.sum()),
+           "snapshot_keyframes": int(in_snap.sum()),
+           "inflight_keyframes": int(flight.sum()),
+           "inflight_kf_diff_m": float(kf_diff), "pt_diff_m": float(pt_diff)})
+    np.testing.assert_array_equal(tk[in_snap], jk[in_snap])
+    assert kf_diff < 1e-4
+    assert pt_diff < 1e-5

@@ -305,6 +305,12 @@ def test_runner_matches_jax(port_run, seq):
     _assert_same_trajectory(np.stack(s.trajectory)[:n], j["poses"])
 
 
+def _tour():
+    """The 625-frame tour, pooled render, cached in build/synth_cache."""
+    return _runner().render_tour(cache_dir=os.path.join(
+        os.path.dirname(DEV), "build", "synth_cache"))
+
+
 @pytest.mark.gpu
 def test_loop_corrections_match_jax_on_the_card():
     """On the card, the 2-lap fr3-scale run at the JAX script's
@@ -326,8 +332,7 @@ def test_loop_corrections_match_jax_on_the_card():
     from eao_fusion_tpu_torch.pipeline import loop_closing as TLC
 
     R = _runner()
-    seq = R.render_tour(cache_dir=os.path.join(os.path.dirname(DEV),
-                                               "build", "synth_cache"))
+    seq = _tour()
     s = System(R.scale_cfg())
     lc = s.loop_closer
     jcfg = JC.SystemConfig(loop=dataclasses.replace(JC.LoopConfig(),
@@ -399,8 +404,7 @@ def test_local_mapping_matches_jax_on_the_card(monkeypatch):
     from eao_fusion_tpu_torch.pipeline import local_mapping as LM
 
     R = _runner()
-    seq = R.render_tour(cache_dir=os.path.join(os.path.dirname(DEV),
-                                               "build", "synth_cache"))
+    seq = _tour()
     s = System(R.scale_cfg())
     jcfg = JC.SystemConfig()
     n_local = s.cfg.capacity.max_local_ba_kfs - 8
@@ -441,64 +445,77 @@ def test_local_mapping_matches_jax_on_the_card(monkeypatch):
         assert r["diff_cm"] < 1.0, r
 
 
-@pytest.mark.gpu
-def test_steps_match_jax_on_the_card():
-    """On the card, the first 270 chunked frames of the tour at the JAX
-    script's configuration: the JAX `slam_step` runs every frame from its
-    own state; every tenth frame the port's `slam_step` runs once on the
-    card from that same state (an empty object table: the lane's randoms
-    are the generator's). The port's pose is within 1 cm of JAX's on every
-    sampled frame, and on average no nearer the ground truth and no
-    farther from it than 0.1 cm. Prints each sampled frame."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    import jax
-
-    from eao_fusion_tpu.ops import lie as JL
-    from eao_fusion_tpu_torch.mapping import map_state as TMS
-    from eao_fusion_tpu_torch.objects import object_map as om
-    from eao_fusion_tpu_torch.pipeline import steady, tracking
-
+def _jax_steady(seq, n_frames: int):
+    """The JAX package's steady loop over the tour's frames from the 12
+    warm-up frames of `process_frame`, one `slam_step` a frame at the JAX
+    script's configuration (on the CPU): yields (frame index, the state
+    before the frame's step, the state after it, the step's diagnostics),
+    up to frame `n_frames` - 1."""
     R = _runner()
-    seq = R.render_tour(cache_dir=os.path.join(os.path.dirname(DEV),
-                                               "build", "synth_cache"))
-    jcfg, tcfg, dev = JC.SystemConfig(), R.scale_cfg(), "cuda"
+    jcfg = JC.SystemConfig()
     js = JSystem(jcfg)
     for k in range(R.N_WARM):
         f = seq.frames[k]
         js.process_frame(f.gray, f.depth, timestamp=k / 30.0, boxes=f.boxes)
     st = JSt.init_steady_state(js)
     nb = jcfg.objects.max_objects_2d
-    rows = []
-    for fi in range(R.N_WARM, R.N_WARM + 270):
+    for fi in range(R.N_WARM, n_frames):
         f = seq.frames[fi]
         bx = R._pad_boxes(f.boxes, nb)
-        if fi % 10 == 0:
-            m = TMS.from_numpy(jax.tree.map(np.asarray, st.m)._asdict(), dev)
-            ts = tracking.track_state_from_numpy(
-                jax.tree.map(np.asarray, st.ts), dev)
-            tst, _ = steady.slam_step(
-                steady.SteadyState(
-                    m=m, ts=ts, objs=om.empty_table(tcfg, dev),
-                    last_fo=steady.empty_frame_objects(tcfg, m, ts),
-                    frame_id=int(np.asarray(st.frame_id)),
-                    generator=torch.Generator(device=dev).manual_seed(11)),
-                torch.as_tensor(f.gray, device=dev),
-                torch.as_tensor(f.depth, device=dev),
-                torch.as_tensor(bx, device=dev), fi / 30.0, cfg=tcfg)
-        st, _ = JSt.slam_step(st, jnp.asarray(f.gray), jnp.asarray(f.depth),
-                               jnp.asarray(bx), jnp.float32(fi / 30.0),
-                               cfg=jcfg)
-        if fi % 10 == 0:
-            c = [np.asarray(JL.se3_inverse(np.asarray(p)))[4:] for p in (
-                st.ts.pose, tst.ts.pose.cpu().numpy(), f.tcw)]
-            rows.append(dict(frame=fi,
-                             diff_cm=float(np.linalg.norm(c[0] - c[1]) * 100),
-                             jax_err_cm=float(np.linalg.norm(c[0] - c[2])
-                                              * 100),
-                             port_err_cm=float(np.linalg.norm(c[1] - c[2])
-                                               * 100)))
-            print("step", rows[-1], flush=True)
+        before = st
+        st, diag = JSt.slam_step(
+            st, jnp.asarray(f.gray), jnp.asarray(f.depth), jnp.asarray(bx),
+            jnp.float32(fi / 30.0), cfg=jcfg)
+        yield fi, before, st, diag
+
+
+def port_step(jst, seq, fi: int, dev):
+    """One port `slam_step` at the JAX script's configuration on `dev`
+    from the JAX state `jst` before frame `fi`, the object table and the
+    last frame objects carried whole (the lane's randoms from a seeded
+    generator on `dev`): (the port's state, its diagnostics)."""
+    import jax
+
+    from eao_fusion_tpu_torch.pipeline import steady
+    R = _runner()
+    tcfg = R.scale_cfg()
+    f = seq.frames[fi]
+    bx = R._pad_boxes(f.boxes, tcfg.objects.max_objects_2d)
+    st = steady.steady_state_from_numpy(
+        jax.tree.map(np.asarray, jst), dev,
+        torch.Generator(device=dev).manual_seed(11))
+    return steady.slam_step(
+        st, torch.as_tensor(f.gray, device=dev),
+        torch.as_tensor(f.depth, device=dev),
+        torch.as_tensor(bx, device=dev), fi / 30.0, cfg=tcfg)
+
+
+def _steps_against_jax(seq, dev, n_frames: int = 282, every: int = 10):
+    """Every `every`-th frame of the JAX steady loop, the port's step on
+    `dev` from the JAX state before it: the rows of `test_steps_match_jax_
+    on_the_card`, printed as they come."""
+    from eao_fusion_tpu.ops import lie as JL
+    rows = []
+    for fi, before, after, _ in _jax_steady(seq, n_frames):
+        if fi % every:
+            continue
+        tst, td = port_step(before, seq, fi, dev)
+        c = [np.asarray(JL.se3_inverse(np.asarray(p)))[4:] for p in (
+            after.ts.pose, tst.ts.pose.cpu().numpy(), seq.frames[fi].tcw)]
+        rows.append(dict(frame=fi,
+                         diff_cm=float(np.linalg.norm(c[0] - c[1]) * 100),
+                         jax_err_cm=float(np.linalg.norm(c[0] - c[2]) * 100),
+                         port_err_cm=float(np.linalg.norm(c[1] - c[2]) * 100),
+                         n_inliers=(int(np.asarray(after.ts.n_inliers)),
+                                    int(td["n_inliers"])),
+                         kf_trigger=int(td["kf_trigger"])))
+        print("step", rows[-1], flush=True)
+    return rows
+
+
+def _assert_steps_agree(rows):
+    """Every sampled frame within 1 cm of JAX's pose, and on average no
+    nearer the ground truth and no farther from it than 0.1 cm."""
     d = np.array([r["diff_cm"] for r in rows])
     e = np.array([r["port_err_cm"] - r["jax_err_cm"] for r in rows])
     print({"frames": len(rows), "diff_cm_median": float(np.median(d)),
@@ -508,3 +525,125 @@ def test_steps_match_jax_on_the_card():
            "port_farther": int((e > 0).sum())})
     assert d.max() < 1.0
     assert abs(e.mean()) < 0.1
+
+
+@pytest.mark.gpu
+def test_steps_match_jax_on_the_card():
+    """On the card, the first 270 chunked frames of the tour at the JAX
+    script's configuration: the JAX `slam_step` runs every frame from its
+    own state; every tenth frame the port's `slam_step` runs once on the
+    card from that same state, the object table and the last frame objects
+    carried across (`steady.steady_state_from_numpy`). The port's pose is
+    within 1 cm of JAX's on every sampled frame, and on average no nearer
+    the ground truth and no farther from it than 0.1 cm. Prints each
+    sampled frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _assert_steps_agree(_steps_against_jax(_tour(), "cuda"))
+
+
+@pytest.mark.slow
+def test_steps_match_jax_on_the_cpu():
+    """The CPU twin of `test_steps_match_jax_on_the_card`: the same sampled
+    frames and bounds, the port's step on the CPU (the plain versions of
+    its kernels)."""
+    _assert_steps_agree(_steps_against_jax(_tour(), "cpu"))
+
+
+def _jax_merge(m, res, snap, pt_map):
+    """The JAX package's `LoopCloser._merge_gba` (on the CPU) on the port's
+    live map `m`, GBA result `res`, snapshot record and point map: the
+    merged keyframe poses and points as numpy arrays."""
+    import types
+
+    from eao_fusion_tpu.mapping import map_state as JMS
+    from eao_fusion_tpu.pipeline import loop_closing as JLC
+    from eao_fusion_tpu_torch.mapping import map_state as TMS
+    jm = JMS.MapState(**{k: jnp.asarray(v)
+                         for k, v in TMS.to_numpy(m).items()})
+    jres = types.SimpleNamespace(**{
+        k: (None if v is None else v.detach().cpu().numpy())
+        for k, v in res._asdict().items()
+        if k in ("cam_pose", "pt_xyz", "pl_coeff")})
+    out = JLC.LoopCloser._merge_gba(
+        types.SimpleNamespace(cfg=JC.SystemConfig()), jm, jres, snap, pt_map)
+    return np.asarray(out.kf_pose), np.asarray(out.pt_xyz)
+
+
+def _run_merging_at(seq, delay: int):
+    """The 2-lap run (`run_scale`, the JAX script's configuration) with
+    every GBA joined and merged at the chunk boundary `delay` boundaries
+    after the one that launched it (a harness over the System's poll, not
+    a feature); each merge also through the JAX package's `_merge_gba` on
+    the same inputs. Returns (the record, the merge rows)."""
+    from eao_fusion_tpu.ops import lie as JL
+    R = _runner()
+    s = System(R.scale_cfg())
+    lc = s.loop_closer
+    at = {"boundary": -1, "launch": None}
+    launch, poll, epilogue, merge = (lc.launch_gba_async, s._poll_gba,
+                                     s.chunk_epilogue, lc._merge_gba)
+
+    def launched(m):
+        at["launch"] = at["boundary"]
+        return launch(m)
+
+    def held(blocking=False):
+        if lc._gba_thread is not None and not blocking:
+            if at["boundary"] < at["launch"] + delay:
+                return False
+            blocking = True
+        return poll(blocking=blocking)
+
+    def counted(st, kf_before):
+        at["boundary"] += 1
+        return epilogue(st, kf_before)
+
+    rows = []
+
+    def compared(m, res, snap, pt_map):
+        out = merge(m, res, snap, pt_map)
+        jk, jp = _jax_merge(m, res, snap, pt_map)
+        kv, pv = m.kf_valid.cpu().numpy(), m.pt_valid.cpu().numpy()
+
+        def centres(p):
+            return np.asarray(JL.se3_inverse(np.asarray(p)))[:, 4:]
+        rows.append(dict(
+            boundary=at["boundary"], launched=at["launch"],
+            kf_diff_cm=float(np.linalg.norm(
+                centres(out.kf_pose.cpu().numpy()[kv]) - centres(jk[kv]),
+                axis=1).max() * 100),
+            pt_diff_cm_max=float(np.linalg.norm(
+                out.pt_xyz.cpu().numpy()[pv] - jp[pv], axis=1).max() * 100),
+            pt_moved_by_remap=int((snap["pt_valid"] & (pt_map >= 0)
+                                   & (pt_map != np.arange(len(pt_map))))
+                                  .sum())))
+        print("merge", delay, rows[-1], flush=True)
+        return out
+    lc.launch_gba_async, s._poll_gba, s.chunk_epilogue = (launched, held,
+                                                          counted)
+    lc._merge_gba = compared
+    return R.run_scale(s, seq, 2, 8), rows
+
+
+@pytest.mark.gpu
+def test_merge_point_and_raw_ate_on_the_card():
+    """On the card, the 2-lap fr3-scale run three times, every GBA merged
+    at the boundary right after the one that launched it, at launch + 2
+    and at launch + 4. Prints each run's raw, corrected and per-lap ATE
+    and event log; every merge's keyframes lie within 1 cm of the JAX
+    package's `_merge_gba` on the same live map, snapshot, GBA result and
+    point map (points within 1 cm)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    seq = _tour()
+    merges = []
+    for delay in (1, 2, 4):
+        out, rows = _run_merging_at(seq, delay)
+        print("merge point", {"delay": delay, **{k: out[k] for k in (
+            "ate_cm", "ate_corrected_cm", "lap_ate_cm", "kf_gt_err_cm",
+            "events")}}, flush=True)
+        assert rows
+        merges += rows
+    for r in merges:
+        assert r["kf_diff_cm"] < 1.0 and r["pt_diff_cm_max"] < 1.0, r

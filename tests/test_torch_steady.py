@@ -24,8 +24,6 @@ from eao_fusion_tpu.pipeline.system import System as JSystem
 from eao_fusion_tpu_torch import config as TC
 from eao_fusion_tpu_torch import kernels
 from eao_fusion_tpu_torch.io import tum
-from eao_fusion_tpu_torch.mapping import map_state as TMS
-from eao_fusion_tpu_torch.objects import object_map as om
 from eao_fusion_tpu_torch.ops import lie as TL
 from eao_fusion_tpu_torch.pipeline import steady, tracking
 from eao_fusion_tpu_torch.pipeline.system import System
@@ -101,13 +99,9 @@ def test_slam_chunk_matches_jax(jax_warm, seq, kf_every):
     System twins)."""
     cfg = _tcfg(use_loop_closing=False)
     js = jax_warm
-    m = TMS.from_numpy(jax.tree.map(np.asarray, js.map)._asdict(), "cpu")
-    ts = tracking.track_state_from_numpy(jax.tree.map(np.asarray, js.track),
-                                         "cpu")
-    st_t = steady.SteadyState(
-        m=m, ts=ts, objs=om.empty_table(cfg, "cpu"),
-        last_fo=steady.empty_frame_objects(cfg, m, ts), frame_id=js.frame_id,
-        generator=torch.Generator().manual_seed(11))
+    st_t = steady.steady_state_from_numpy(
+        jax.tree.map(np.asarray, JSt.init_steady_state(js)), "cpu",
+        torch.Generator().manual_seed(11))
     g, d, b, t = _chunk(cfg, seq.frames, 8, 6)
     before = dict(kernels.launches)
     st_t, dt = steady.slam_chunk(st_t, g, d, b, t, cfg=cfg,
