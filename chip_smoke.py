@@ -178,13 +178,33 @@ Phases (any failure exits non-zero and prints no result line):
      (the ATE printed beside the JAX record) and the port's event log,
      the determinism line (the chunk of the first GBA launch, a digest of
      the raw poses up to it), the median chunk and epilogue ms;
+ 31. the kidnap (tests/torch_contracts.py): the pass over the seed-5
+     corridor, its frames 0-23 again, then 48 frames from `back` in the
+     live map, nothing rendered anew. 31a continues phase 25b's System
+     through `process_frame` (back 192) and asserts the premise (an
+     eviction, the kidnap 2 m from every live keyframe, each return
+     frame within 0.5 m of one, a jump of >= 1 m into the return); 31b
+     runs full width (`kidnap_cfg()`, 64 keyframe and 8192 point slots)
+     in chunks of 8 (back 120) and prints its premise. Each: BoW
+     relocalization of the return's first frame against the map within 5
+     cm and 0.05 rad; no reset, no OK frame over 5 cm or 0.05 rad from
+     its truth after the pass alignment, every relocalization within
+     that, nothing inserted and kf_valid, kf_pose, pt_valid and pt_xyz
+     bit-identical while lost, the track back in the return with its
+     last 24 frames OK (31b: > 80 inliers), the return's raw ATE < 5 cm,
+     the bow rows after the return; a relocalization in the return
+     (31a, 31b) and 31b's 5 cm bound are printed when missed, not
+     raised: the JAX package misses them from the same state; the ms of
+     a lost frame or a relocalizing epilogue, the recovery point, the
+     live objects before and after the kidnap;
  19. last, one JSON line with every kernel's numbers (launches from phase
      7), the `nvidia-smi` line, and as the last line {"ok": true,
      "device": {...}}.
-Phases 6-9, 11-13, 14-17, 21, 24 and 25-30 each set the launch counts to 0 just
+Phases 6-9, 11-13, 14-17, 21, 24 and 25-31 each set the launch counts to 0 just
 before they drive the System or the steady step (in 14, 14b and 30: the
-chunks; in 17: each CLI run; in 22: the threaded runs; in 24: the 12
-frames, in each rank) and read them just after; each holds K1 to two
+chunks; in 31a: the kidnap and the return; in 17: each CLI run; in 22:
+the threaded runs; in 24: the 12 frames, in each rank) and read them
+just after; each holds K1 to two
 launches per tracked frame plus one per relocalization pose solve and K4
 to K2's count. No phase falls back to the CPU or to random weights, a
 failure of the GBA thread fails the run, and so does a child rank that
@@ -1723,22 +1743,6 @@ STEADY_WARM = 8
 STEADY_CHUNK = 6
 
 
-def _chunk_tensors(cfg, frames, boxes: bool):
-    """A chunk's (grays, depths, box tables, timestamps) on the card; each
-    box table padded to max_objects_2d rows of zeros (score 0)."""
-    import torch
-    bx = np.zeros((len(frames), cfg.objects.max_objects_2d, 6), np.float32)
-    for i, f in enumerate(frames):
-        if boxes and len(f.boxes):
-            b = np.asarray(f.boxes, np.float32)[:bx.shape[1]]
-            bx[i, :len(b)] = b
-    dev = torch.device("cuda")
-    return (torch.as_tensor(np.stack([f.gray for f in frames]), device=dev),
-            torch.as_tensor(np.stack([f.depth for f in frames]), device=dev),
-            torch.as_tensor(bx, device=dev),
-            [float(f.timestamp) for f in frames])
-
-
 def run_chunked(s, frames, chunk: int, boxes: bool = False):
     """Drive System `s` (warmed up with `process_frame`) over `frames` in
     the steady chunked mode: `slam_chunk` over each chunk, its frames
@@ -1749,6 +1753,7 @@ def run_chunked(s, frames, chunk: int, boxes: bool = False):
     import torch
     from eao_fusion_tpu_torch import kernels
     from eao_fusion_tpu_torch.pipeline import steady
+    C = _tests_module("torch_contracts")
     cfg = s.cfg
     st = steady.init_steady_state(s)
     kf_before = int(st.m.next_kf)
@@ -1756,7 +1761,8 @@ def run_chunked(s, frames, chunk: int, boxes: bool = False):
     torch.cuda.synchronize()
     kernels.reset_launches()
     for lo in range(0, len(frames), chunk):
-        g, d, b, ts = _chunk_tensors(cfg, frames[lo:lo + chunk], boxes)
+        g, d, b, ts = C.chunk_tensors(cfg, frames[lo:lo + chunk], boxes,
+                                      torch.device("cuda"))
         t = time.perf_counter()
         st, diag = steady.slam_chunk(st, g, d, b, ts, cfg=cfg)
         torch.cuda.synchronize()
@@ -3053,7 +3059,7 @@ RENDER_WORKERS = 8
 
 @functools.lru_cache(maxsize=None)
 def _contract_inputs():
-    """Every sequence of phases 25-30, rendered once per run: the noiseless
+    """Every sequence of phases 25-31, rendered once per run: the noiseless
     ones in one pool of spawned processes (`synthetic.render_sequences`,
     kept under build/synth_cache), the whole 625-frame tour among them,
     the depth-noise arc serially. Three pooled tour frames (the first, the
@@ -3063,7 +3069,7 @@ def _contract_inputs():
     C = _tests_module("torch_contracts")
     H = _tests_module("torch_retrieval_harness")
     specs = {"tour": C.TOUR_SPEC, "corridor": C.EXPLORATION_SPEC,
-             "forward": C.FORWARD_SPEC,
+             "corridor_full": C.CORRIDOR_SPEC, "forward": C.FORWARD_SPEC,
              "arc20": dict(n_frames=N_FRAMES, seed=SEED, style="arc"),
              "arc24ct": dict(n_frames=24, seed=SEED, style="arc",
                              class_textures=True)}
@@ -3120,14 +3126,15 @@ def _contract_run(cfg, seq, tag, check, on_frame=None, **kw):
     return s, summary, out
 
 
-def phase_lifecycle(smi_line: str):
+def phase_lifecycle(smi_line: str, keep: dict = None):
     """Phase 25: the keyframe and point tables over hundreds of frames,
     loop closing on. (a) Endurance: frames 0-505 of the 625-frame seed-0
     tour into 24 keyframe and 3072 point slots (tests/test_endurance.py);
     (b) exploration: the 240-frame seed-5 corridor at 320x240, a keyframe
     at least every 6 frames (tests/test_kf_lifecycle.py:185-215). The
     occupancy every 50 frames, the median tracking and keyframe frame ms,
-    the peak memory after frame 100 and at the end."""
+    the peak memory after frame 100 and at the end. `keep["exploration"]`
+    receives (b)'s System, which phase 31a drives on."""
     C = _tests_module("torch_contracts")
     t0 = time.perf_counter()
     inp = _contract_inputs()
@@ -3142,9 +3149,11 @@ def phase_lifecycle(smi_line: str):
                             bow_rows_checked=C.check_bow_rows(s)))):
         t = time.perf_counter()
         marks = {}
-        _, summary, res = _contract_run(
+        s, summary, res = _contract_run(
             cfg, seq, tag, check, corrected=True,
             on_frame=_occupancy_log(tag, len(seq.frames), marks))
+        if keep is not None and tag == "exploration":
+            keep[tag] = s
         out[tag] = dict(res, **marks, wall_s=time.perf_counter() - t,
                         **{k: summary[k] for k in (
                             "median_tracking_frame_ms",
@@ -3374,6 +3383,177 @@ def phase_fr3_scale(smi_line: str):
     return out
 
 
+# ---------------------------------------------- phase 31: the kidnap, a
+# loss in a region that capacity eviction removed and the return into the
+# live map (tests/torch_contracts.py, the kidnap contract)
+
+def _kidnap_inputs():
+    """Phase 31's two corridors alone (one pool), for phase 31 run alone."""
+    from eao_fusion_tpu_torch.io import synthetic
+    C = _tests_module("torch_contracts")
+    seqs = synthetic.render_sequences([C.EXPLORATION_SPEC, C.CORRIDOR_SPEC],
+                                      workers=RENDER_WORKERS,
+                                      cache_dir=SYNTH_CACHE)
+    return dict(zip(("corridor", "corridor_full"), seqs))
+
+
+def _kidnap_contract(s, seq, recs, n_pass, chunked, counts, tracked,
+                     solves, resets0, **kw) -> dict:
+    """The kidnap contract on a recording, the launch rule of the run and
+    the loop closer's bow rows after it."""
+    C = _tests_module("torch_contracts")
+    out = C.check_kidnap_run(s, seq, recs, n_pass, chunked,
+                             resets_before=resets0, **kw)
+    _check_launches(counts, tracked, solves)
+    out["bow_rows_checked"] = C.check_bow_rows(s)
+    out["launches"] = counts
+    out["tracked_frames"] = tracked
+    out["reloc_pose_solves"] = solves
+    return out
+
+
+def phase_kidnap(smi_line: str, exploration=None, inputs=None):
+    """Phase 31: the kidnap contract (`tests/torch_contracts.py`): the pass
+    evicts, the kidnap jumps back to the corridor's first 24 frames, whose
+    keyframes eviction removed, the return jumps to frames `back` ..
+    `back` + 47 of the live map; nothing new is rendered for them. The
+    premise (`check_kidnap`) is asserted and printed after the pass, then
+    BoW relocalization itself of the return's first frame against the map
+    (`probe_relocalization`: it must land within 5 cm and 0.05 rad), then
+    the contract over the kidnap and the return (`check_kidnap_run`, (a)-
+    (f)) and the launch rule (g), the counts set to 0 just before the
+    driven frames and read just after; the loop closer's bow rows after
+    the return. `inputs` holds the two corridors (`_contract_inputs`;
+    None renders them). (a) 31a: phase 25b's System (`exploration`; or a
+    new run of it) continues through `process_frame`, back = 192. (b) 31b: full width,
+    `kidnap_cfg()` (the fr3-scale configuration with 64 keyframe and 8192
+    point slots, a keyframe at least every 6 frames), the 640x480 seed-5
+    corridor with the renderer's boxes, 8 `process_frame` frames, then
+    chunks of 8 through `slam_chunk` and `chunk_epilogue`, back = 120.
+    Prints the ms of a lost frame (tracking and `relocalize`) or of a
+    relocalizing epilogue, the recovery point and the live objects before
+    and after the kidnap."""
+    import torch
+    from eao_fusion_tpu_torch import kernels
+    from eao_fusion_tpu_torch.pipeline.system import System
+    C = _tests_module("torch_contracts")
+    sync = torch.cuda.synchronize
+    out = {}
+
+    # 31a: the exploration scale, through process_frame
+    t0 = time.perf_counter()
+    inputs = inputs or _kidnap_inputs()
+    corridor = inputs["corridor"]
+    s = exploration
+    if s is None:
+        s, _, _ = _contract_run(C.exploration_cfg(), corridor,
+                                "exploration",
+                                lambda s: C.check_exploration(s, corridor))
+    n = len(corridor.frames)
+    seq = C.kidnap_sequence(corridor, back=C.BACK_EXPLORATION)
+    premise = C.check_kidnap(s, seq, n)
+    log("kidnap (31a) premise: " + json.dumps(premise))
+    align = C.pass_alignment(s, seq, n)
+    probe = C.probe_relocalization(s, seq, n + C.KIDNAP_FRAMES, align)
+    log("kidnap (31a) BoW relocalization of the return's first frame: "
+        + json.dumps(probe))
+    objects0 = int(s.objects.valid.sum())
+    tracked0, solves0 = len(s.diags), s.reloc_stats.get("pose_solves", 0)
+    resets0 = s.n_resets
+    sync()
+    kernels.reset_launches()
+    recs = C.run_kidnap_frames(s, seq, n, sync=sync)
+    counts = dict(kernels.launches)
+    # (e1) stands missed: the tracker's own search brings the JAX
+    # package's return back too, with no relocalization
+    # (tests/test_torch_kidnap.py::test_kidnap_matches_jax_system)
+    res = _kidnap_contract(
+        s, seq, recs, n, False, counts, len(s.diags) - tracked0,
+        s.reloc_stats.get("pose_solves", 0) - solves0, resets0,
+        standing=("(e1)",))
+    res.update(premise=premise, probe=probe, objects_before=objects0,
+               objects_after=int(s.objects.valid.sum()),
+               wall_s=time.perf_counter() - t0)
+    out["31a"] = res
+    log("kidnap (31a): " + json.dumps(res, default=float))
+    _check_probe(probe)
+
+    # 31b: full width, through the chunked loop
+    t0 = time.perf_counter()
+    corridor = inputs["corridor_full"]
+    n = len(corridor.frames)
+    seq = C.kidnap_sequence(corridor, back=C.BACK_SCALE)
+    s = System(C.kidnap_cfg())
+    if s.device.type != "cuda":
+        raise AssertionError(f"System runs on {s.device}, not on the card")
+    marks = {}
+
+    def on_chunk(ci, st):
+        end = C.CHUNK_WARM + (ci + 1) * C.CHUNK
+        if end == n:
+            # the full-width pass keeps the corridor's first keyframe
+            # (ROADMAP queue 3): the premise is printed, not asserted
+            marks["premise"] = C.check_kidnap(s, seq, n, strict=False)
+            log("kidnap (31b) premise: " + json.dumps(marks["premise"]))
+            marks["objects_before"] = int(s.objects.valid.sum())
+            marks["probe"] = C.probe_relocalization(
+                s, seq, n + C.KIDNAP_FRAMES, C.pass_alignment(s, seq, n))
+            log("kidnap (31b) BoW relocalization of the return's first "
+                "frame: " + json.dumps(marks["probe"]))
+        elif end == n + C.KIDNAP_FRAMES:
+            marks["objects_after"] = int(s.objects.valid.sum())
+
+    sync()
+    kernels.reset_launches()
+    for f in seq.frames[:C.CHUNK_WARM]:
+        s.process_frame(f.gray, f.depth, f.timestamp, boxes=f.boxes)
+    recs = C.run_kidnap_chunks(s, seq, C.CHUNK_WARM, boxes=True, sync=sync,
+                               on_chunk=on_chunk)
+    counts = dict(kernels.launches)
+    # the probe's pose solves launched K1 too, between two chunks
+    solves = (s.reloc_stats.get("pose_solves", 0)
+              + marks["probe"]["pose_solves"])
+    # (b) and (e1) stand missed at full width: from the same state the
+    # JAX package's return also reports OK over 5 cm from the truth, and
+    # comes back by the tracker's own search
+    # (tests/test_torch_kidnap.py::test_kidnap_return_from_one_state;
+    # ROADMAP queue 3), so a miss is printed, not raised
+    res = _kidnap_contract(s, seq, recs, n, True, counts, len(s.diags),
+                           solves, 0, min_inliers_end=80,
+                           standing=("(b)", "(e1)"))
+    res.update(marks,
+               median_chunk_ms=float(np.median([r["ms"] for r in recs])),
+               median_epilogue_ms=float(np.median(
+                   [r["epilogue_ms"] for r in recs])),
+               wall_s=time.perf_counter() - t0)
+    out["31b"] = res
+    log("kidnap (31b): " + json.dumps(res, default=float))
+    _check_probe(marks["probe"])
+    for tag, r in out.items():
+        if r["standing"]:
+            log(f"phase 31 ({tag}): missed, standing (the JAX package "
+                f"misses them from the same state): {r['standing']}; "
+                f"{len(r['wrong_ok_frames'])} frames OK over 5 cm or 0.05 "
+                f"rad, the farthest {r['max_ok_error_cm']:.2f} cm")
+        log(f"phase 31 ({tag}): recovery {r['recovery']} by "
+            f"{r['recovered_by']}, {r['return_relocalizations']} "
+            f"relocalizations in the return, lost frames {r['lost_frames']}, "
+            f"return ATE {r['return_ate_cm']:.3f} cm, max OK error "
+            f"{r['max_ok_error_cm']:.3f} cm; objects "
+            f"{r['objects_before']} -> {r['objects_after']}; wall "
+            f"{r['wall_s']:.1f} s; {smi_line}")
+    return out
+
+
+def _check_probe(probe: dict) -> None:
+    """BoW relocalization of the return's first frame lands within 5 cm
+    and 0.05 rad of its truth."""
+    if not (probe["found"] and probe["error_cm"] < 5.0
+            and probe["error_rad"] < 0.05):
+        raise AssertionError(f"BoW relocalization into the live map: "
+                             f"{probe}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3433,12 +3613,15 @@ def main() -> int:
         phase_eval()
         phase_vocab()
         phase_sharded_step(smi_line)
-        phase_lifecycle(smi_line)
+        handed = {}
+        phase_lifecycle(smi_line, keep=handed)
         phase_compaction_culling(smi_line)
         phase_nuisance(smi_line)
         phase_crowded_retrieval(smi_line)
         phase_odometry(smi_line)
         phase_fr3_scale(smi_line)
+        phase_kidnap(smi_line, handed.pop("exploration"),
+                     _contract_inputs())
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

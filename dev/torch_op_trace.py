@@ -31,12 +31,16 @@ the caller then drops is listed too; read each site.
 
 The workload is the endurance contract's input (`chip_smoke.py` phase
 25a: the tour's first 506 frames into 24 keyframe slots, loop closing on,
-no GBA) through `process_frame`, cut to `--frames`; `--fr3` takes the
-fr3-scale configuration (`dev/torch_run_fr3_scale.scale_cfg`: planes,
-objects with the renderer's boxes) instead.
+no GBA) through `process_frame`, cut to `--frames` (160 by default);
+`--fr3` takes the fr3-scale configuration (`dev/torch_run_fr3_scale.
+scale_cfg`: planes, objects with the renderer's boxes) instead;
+`--kidnap` takes the kidnap contract's (`chip_smoke.py` phase 31a: the
+240-frame corridor at 320x240 into 24 keyframe slots, then the kidnap
+and the return, 312 frames in all by default).
 
-    python3 dev/torch_op_trace.py [--frames 160] [--fr3]
+    python3 dev/torch_op_trace.py [--frames 160] [--fr3 | --kidnap]
     python dev/torch_op_trace.py --mode scatters --device cpu --frames 160
+    python dev/torch_op_trace.py --mode scatters --device cpu --kidnap
 
 Runs on the card unless `--device cpu` is given. The port only: no JAX.
 """
@@ -254,8 +258,10 @@ def make_scatter_check():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", choices=("trace", "scatters"), default="trace")
-    ap.add_argument("--frames", type=int, default=160)
-    ap.add_argument("--fr3", action="store_true")
+    ap.add_argument("--frames", type=int, default=None)
+    group = ap.add_mutually_exclusive_group()
+    group.add_argument("--fr3", action="store_true")
+    group.add_argument("--kidnap", action="store_true")
     ap.add_argument("--lap-frames", type=int, default=625)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--cache-dir",
@@ -270,8 +276,17 @@ def main(argv=None) -> int:
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu")
-    seq = R.render_tour(args.lap_frames, args.cache_dir)
-    cfg = R.scale_cfg() if args.fr3 else C.endurance_cfg()
+    if args.kidnap:
+        from eao_fusion_tpu_torch.io import synthetic
+        corridor = synthetic.render_sequences(
+            [C.EXPLORATION_SPEC], cache_dir=args.cache_dir)[0]
+        seq = C.kidnap_sequence(corridor, back=C.BACK_EXPLORATION)
+        cfg = C.exploration_cfg()
+        workload = "kidnap"
+    else:
+        seq = R.render_tour(args.lap_frames, args.cache_dir)
+        cfg = R.scale_cfg() if args.fr3 else C.endurance_cfg()
+        workload = "fr3" if args.fr3 else "endurance"
 
     def run(mode, frames):
         s = System(cfg, device=dev)
@@ -287,9 +302,9 @@ def main(argv=None) -> int:
             pass
         return n, time.perf_counter() - t0
 
-    frames = seq.frames[:args.frames]
-    out = dict(mode=args.mode, workload="fr3" if args.fr3 else "endurance",
-               frames=len(frames), device=str(dev))
+    frames = seq.frames[:args.frames or (None if args.kidnap else 160)]
+    out = dict(mode=args.mode, workload=workload, frames=len(frames),
+               device=str(dev))
     if args.mode == "scatters":
         check = make_scatter_check()()
         run(check, frames)

@@ -16,7 +16,9 @@ Imports torch and the port only, never JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import time
 from typing import Dict, List
 
 import numpy as np
@@ -104,7 +106,6 @@ FORWARD_SPEC = dict(n_frames=15, seed=3, style="forward")
 def endurance_sequence(tour):
     """The endurance contract's input: the tour's first ENDURANCE_FRAMES
     frames."""
-    import dataclasses
     return dataclasses.replace(tour, frames=tour.frames[:ENDURANCE_FRAMES])
 
 
@@ -376,4 +377,471 @@ def check_cull_on(device) -> Dict:
         np.testing.assert_array_equal(*got)
         check_cull(got[0], n_kf, max_cull)
         out[f"{n_kf} keyframes, max_cull {max_cull}"] = int(got[0].sum())
+    return out
+
+
+# ---------------------------------------------------------------- the kidnap
+# Exploration that evicts, a jump back to where it began (a place whose
+# keyframes eviction removed), then a jump into the live map: the kidnap
+# contract (chip_smoke.py phase 31, tests/test_torch_kidnap.py). The
+# workload replays the rendered corridor; nothing new is rendered.
+
+KIDNAP_FRAMES = 24        # the kidnap: the corridor's frames 0-23 again
+RETURN_FRAMES = 48        # the return: frames back .. back + 47
+BACK_EXPLORATION = 192    # 31a: 2.35 m behind the pass's last frame
+BACK_SCALE = 120          # 31b: full width, 64 keyframe slots
+CHUNK = 8                 # the steady loop's chunk (dev/torch_run_fr3_scale)
+CHUNK_WARM = 8            # process_frame frames before the first chunk
+# the map fields a LOST frame must leave bit for bit as they were
+LOST_FIELDS = ("kf_valid", "kf_pose", "pt_valid", "pt_xyz")
+# the bounds of tests/test_reloc_e2e.py:40-48
+RELOC_M, RELOC_RAD = 0.05, 0.05
+CORRIDOR_SPEC = dict(n_frames=240, seed=5, style="corridor")
+
+
+def kidnap_cfg() -> SystemConfig:
+    """31b: the fr3-scale configuration (planes, objects on the renderer's
+    boxes, loop closing, 1024 keypoint slots) with quarter-size keyframe
+    tables at the endurance contract's 1 : 128 ratio and a keyframe at
+    least every 6 frames, as the exploration contract has it."""
+    base = SystemConfig()
+    return base.replace(
+        capacity=dataclasses.replace(base.capacity, max_keyframes=64,
+                                     max_points=8192),
+        tracking=dataclasses.replace(base.tracking,
+                                     max_frames_between_kf=6))
+
+
+def kidnap_order(n_pass: int, kidnap: int = KIDNAP_FRAMES,
+                 back: int = BACK_EXPLORATION) -> List[int]:
+    """The corridor frame of each frame of the workload: the pass (frames
+    0 .. n_pass - 1), the kidnap (0 .. kidnap - 1), the return (back ..
+    back + RETURN_FRAMES - 1)."""
+    return (list(range(n_pass)) + list(range(kidnap))
+            + list(range(back, back + RETURN_FRAMES)))
+
+
+def kidnap_sequence(corridor, kidnap: int = KIDNAP_FRAMES,
+                    back: int = BACK_EXPLORATION):
+    """The kidnap workload over the rendered `corridor`, frames in
+    `kidnap_order`, the timestamps rising 1/30 s a frame."""
+    order = kidnap_order(len(corridor.frames), kidnap, back)
+    return dataclasses.replace(corridor, frames=[
+        dataclasses.replace(corridor.frames[i], timestamp=k / 30.0)
+        for k, i in enumerate(order)])
+
+
+def _centres(tcw) -> np.ndarray:
+    from eao_fusion_tpu_torch.ops import lie
+    return lie.se3_inverse(torch.as_tensor(
+        np.asarray(tcw, np.float32)))[..., 4:].numpy()
+
+
+def pass_alignment(s, seq, n_pass: int):
+    """(R, t): the rigid alignment of the pass's raw trajectory onto its
+    ground truth, as the pass's ATE takes it."""
+    est = s.trajectory_tcw()[:n_pass]
+    R, t, _ = tum.umeyama_alignment(_centres(est), _centres(_gt(seq)[:n_pass]))
+    return R, t
+
+
+def aligned_error(tcw, tcw_gt, align) -> tuple:
+    """(metres, radians) between an estimated pose, carried into the
+    ground truth's frame by the pass alignment `align`, and its truth."""
+    from eao_fusion_tpu_torch.ops import lie
+    R, t = align
+    twc = lie.se3_inverse(torch.as_tensor(np.asarray(tcw, np.float32)))
+    gwc = lie.se3_inverse(torch.as_tensor(np.asarray(tcw_gt, np.float32)))
+    c = R @ twc[4:].numpy().astype(np.float64) + t
+    Re = R @ lie.quat_to_rotmat(twc[:4]).numpy().astype(np.float64)
+    Rg = lie.quat_to_rotmat(gwc[:4]).numpy().astype(np.float64)
+    cos = np.clip((np.trace(Rg.T @ Re) - 1.0) / 2.0, -1.0, 1.0)
+    return (float(np.linalg.norm(c - gwc[4:].numpy())),
+            float(np.arccos(cos)))
+
+
+def check_kidnap(s, seq, n_pass: int, kidnap: int = KIDNAP_FRAMES,
+                 strict: bool = True) -> Dict:
+    """The premise, after the pass and before the kidnap: an eviction has
+    run; no live keyframe lies within 2 m of any kidnap frame's true camera
+    centre; a live keyframe lies within 0.5 m of each return frame's; the
+    return's first frame lies at least 1 m from the pose the tracker holds
+    at the pass's end (its last OK pose, carried by the pass alignment):
+    the return is a jump that the motion model cannot track. (The return
+    then walks on towards the pass's end, so its later frames come near
+    that pose.) A live keyframe's place is its frame's ground truth. If
+    this fails, the workload is wrong, not the port. `fails` names the
+    clauses that fail; `strict` raises if any does."""
+    gt = _centres(_gt(seq))
+    m = s.map
+    kv = m.kf_valid.cpu().numpy()
+    kf_c = gt[m.kf_frame_id.cpu().numpy()[kv]]
+    kid = gt[n_pass:n_pass + kidnap]
+    ret = gt[n_pass + kidnap:]
+
+    def nearest(a, b):
+        return np.linalg.norm(a[:, None] - b[None], axis=-1).min(axis=1)
+
+    R, t = pass_alignment(s, seq, n_pass)
+    frozen = R @ _centres(s.track.pose.cpu()).astype(np.float64) + t
+    evictions = sum(e["event"] == "kf_eviction" for e in s.events)
+    out = {"kf_evictions": evictions, "n_kf_evicted": s.n_kf_evictions,
+           "live_kfs": int(kv.sum()),
+           "live_kf_frames": [int(f) for f in
+                              sorted(m.kf_frame_id.cpu().numpy()[kv])],
+           "kidnap_nearest_kf_m": float(nearest(kid, kf_c).min()),
+           "return_nearest_kf_max_m": float(nearest(ret, kf_c).max()),
+           "return_jump_m": float(np.linalg.norm(ret[0] - frozen))}
+    out["fails"] = [name for name, ok in (
+        ("an eviction", evictions >= 1),
+        ("the kidnap 2 m from every live keyframe",
+         out["kidnap_nearest_kf_m"] > 2.0),
+        ("a live keyframe within 0.5 m of each return frame",
+         out["return_nearest_kf_max_m"] < 0.5),
+        ("the return's first frame 1 m from the held pose",
+         out["return_jump_m"] >= 1.0)) if not ok]
+    if strict and out["fails"]:
+        raise AssertionError(out)
+    return out
+
+
+def map_snapshot(m) -> tuple:
+    return tuple(getattr(m, f).clone() for f in LOST_FIELDS)
+
+
+def map_unchanged(m, snap) -> bool:
+    return all(torch.equal(getattr(m, f), x)
+               for f, x in zip(LOST_FIELDS, snap))
+
+
+def run_kidnap_frames(s, seq, lo: int, boxes: bool = False,
+                      sync=lambda: None) -> List[Dict]:
+    """Drive System `s` over `seq.frames[lo:]` through `process_frame` and
+    record each frame: the tracker lost it (fewer inliers than the
+    tracking gate), BoW relocalization recovered it, the status and pose
+    it reports, its inliers, its ms and the ms of `relocalize` in it
+    (`sync` waits for the device), the keyframes inserted, and for a lost
+    frame left lost whether `LOST_FIELDS` kept their bits."""
+    gate = s.cfg.tracking.min_matches_track
+    reloc_ms = []
+    relocalize = s._relocalize
+
+    def timed(feats):
+        t = time.perf_counter()
+        ok = relocalize(feats)
+        sync()
+        reloc_ms.append((time.perf_counter() - t) * 1e3)
+        return ok
+
+    s._relocalize = timed
+    recs = []
+    try:
+        for i in range(lo, len(seq.frames)):
+            f = seq.frames[i]
+            snap, n_kf = map_snapshot(s.map), s.n_keyframes
+            n_rel, n_ms = s.n_relocalizations, len(reloc_ms)
+            t = time.perf_counter()
+            pose = s.process_frame(f.gray, f.depth, f.timestamp,
+                                   boxes=f.boxes if boxes else None)
+            sync()
+            ms = (time.perf_counter() - t) * 1e3
+            n_in = s.diags[-1]["n_inliers"]
+            rel = s.n_relocalizations > n_rel
+            lost = n_in < gate
+            recs.append(dict(
+                frame=i, lost=lost, relocalized=rel,
+                ok=int(s.track.status) == 1, pose=np.asarray(pose),
+                n_inliers=n_in, ms=ms,
+                reloc_ms=reloc_ms[-1] if len(reloc_ms) > n_ms else None,
+                inserted=s.n_keyframes - n_kf,
+                unchanged=(map_unchanged(s.map, snap) if lost and not rel
+                           else None)))
+    finally:
+        del s._relocalize            # the bound method again
+    return recs
+
+
+def chunk_tensors(cfg, frames, boxes: bool, device):
+    """A chunk's (grays, depths, box tables, timestamps) on `device`; each
+    box table padded to max_objects_2d rows of zeros (score 0)."""
+    bx = np.zeros((len(frames), cfg.objects.max_objects_2d, 6), np.float32)
+    for i, f in enumerate(frames):
+        if boxes and len(f.boxes):
+            b = np.asarray(f.boxes, np.float32)[:bx.shape[1]]
+            bx[i, :len(b)] = b
+    return (torch.as_tensor(np.stack([f.gray for f in frames]),
+                            device=device),
+            torch.as_tensor(np.stack([f.depth for f in frames]),
+                            device=device),
+            torch.as_tensor(bx, device=device),
+            [float(f.timestamp) for f in frames])
+
+
+# the System counters that a chunk boundary can move
+BOUNDARY_COUNTERS = {"loop": "n_loops_closed", "gba_merge": "n_gba_merges",
+                     "kf_compaction": "n_kf_compactions",
+                     "pt_compaction": "n_pt_compactions",
+                     "relocalization": "n_relocalizations"}
+
+
+def run_kidnap_chunks(s, seq, lo: int, chunk: int = CHUNK,
+                      boxes: bool = False, sync=lambda: None,
+                      on_chunk=None) -> List[Dict]:
+    """Drive System `s` (warmed up with `process_frame` over frames
+    0 .. lo - 1) over `seq.frames[lo:]` in the steady chunked mode:
+    `slam_chunk`, `record_chunk`, `chunk_epilogue`. Records each chunk:
+    its frames, which the tracker lost, their inliers and insertions, the
+    pose of each frame, the status at the chunk's end and after its
+    epilogue, the events of the boundary, whether the boundary relocalized
+    and to what pose, the chunk's and the epilogue's ms, and whether
+    `LOST_FIELDS` kept their bits through a chunk the tracker lost whole
+    and through its epilogue. `on_chunk(index, carry)` runs after each
+    epilogue."""
+    from eao_fusion_tpu_torch.pipeline import steady
+    cfg = s.cfg
+    gate = cfg.tracking.min_matches_track
+    st = steady.init_steady_state(s)
+    kf_before = int(st.m.next_kf)
+    recs = []
+    for ci, c0 in enumerate(range(lo, len(seq.frames), chunk)):
+        frames = seq.frames[c0:c0 + chunk]
+        g, d, b, ts = chunk_tensors(cfg, frames, boxes, s.device)
+        snap = map_snapshot(st.m)
+        t = time.perf_counter()
+        st, diag = steady.slam_chunk(st, g, d, b, ts, cfg=cfg)
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        s.record_chunk(st, diag, ts)
+        n_in = diag["n_inliers"].cpu().numpy()
+        lost = n_in < gate
+        status_end = int(st.ts.status)
+        before = {k: getattr(s, v) for k, v in BOUNDARY_COUNTERS.items()}
+        snap_ep = map_snapshot(st.m)
+        t = time.perf_counter()
+        st = s.chunk_epilogue(st, kf_before)
+        sync()
+        ep_ms = (time.perf_counter() - t) * 1e3
+        kf_before = s.next_kf_hint
+        events = [k for k, v in BOUNDARY_COUNTERS.items()
+                  if getattr(s, v) > before[k]]
+        rel = "relocalization" in events
+        recs.append(dict(
+            chunk=ci, frames=list(range(c0, c0 + len(frames))),
+            lost=lost.tolist(), n_inliers=n_in.tolist(),
+            inserted=diag["kf_inserted"].cpu().numpy().astype(int).tolist(),
+            poses=diag["pose"].cpu().numpy(), status_end=status_end,
+            status_after=int(st.ts.status), events=events,
+            relocalized=rel,
+            reloc_pose=st.ts.pose.cpu().numpy() if rel else None,
+            ms=ms, epilogue_ms=ep_ms,
+            unchanged=map_unchanged(st.m, snap) if lost.all() else None,
+            unchanged_epilogue=map_unchanged(st.m, snap_ep)))
+        if on_chunk is not None:
+            on_chunk(ci, st)
+    return recs
+
+
+def _frames_of(recs, chunked: bool) -> List[Dict]:
+    """Per-frame rows (frame, lost, ok, pose, n_inliers, inserted) of
+    either recording."""
+    if not chunked:
+        return recs
+    return [dict(frame=f, lost=lo, ok=not lo, pose=p, n_inliers=n,
+                 inserted=k)
+            for r in recs for f, lo, p, n, k in zip(
+                r["frames"], r["lost"], r["poses"], r["n_inliers"],
+                r["inserted"])]
+
+
+def check_kidnap_run(s, seq, recs, n_pass: int, chunked: bool,
+                     kidnap: int = KIDNAP_FRAMES, min_inliers_end: int = 0,
+                     resets_before: int = 0, standing=()) -> Dict:
+    """The kidnap contract over the kidnap and the return (`recs` of
+    `run_kidnap_frames`, or of `run_kidnap_chunks` with `chunked`): (a) no
+    reset; (b) no frame reports OK at a pose more than RELOC_M or
+    RELOC_RAD from its truth, after the pass alignment; (c) every
+    relocalization lands within the same bounds (a boundary's on the
+    chunk's last frame); (d) no keyframe is inserted on a lost frame, and
+    `LOST_FIELDS` keep their bits across every run of lost frames (each
+    lost frame through `process_frame`; each chunk lost whole, and the
+    epilogues between two such chunks but those that compacted, closed a
+    loop or merged a GBA); (e1) a relocalization in the return, and (e2)
+    the track back in the return (its first OK frame after a lost one, by
+    BoW relocalization or by the tracker's own reference-keyframe search,
+    which both packages run on a lost track first) with the last 24
+    frames OK (with more than `min_inliers_end` inliers each); (f) the raw
+    ATE of the return's OK frames under 5 cm. A bound named in `standing`
+    (its label, "(b)", "(e1)") is one the JAX package was shown to miss
+    from the same state: its failure goes to "standing" and raises
+    nothing. Returns the values it read."""
+    align = pass_alignment(s, seq, n_pass)
+    gt = _gt(seq)
+    start_ret = n_pass + kidnap
+    if chunked:
+        # the chunks from the one that ends the pass on
+        recs = [r for r in recs if r["frames"][-1] >= n_pass - 1]
+    rows = [r for r in _frames_of(recs, chunked) if r["frame"] >= n_pass]
+    fails = []
+    errs = {}
+    for r in rows:
+        if r["ok"]:
+            errs[r["frame"]] = aligned_error(r["pose"], gt[r["frame"]], align)
+    wrong = {f: e for f, e in errs.items()
+             if not (e[0] < RELOC_M and e[1] < RELOC_RAD)}
+    if chunked:
+        relocs = {r["frames"][-1]: aligned_error(
+            r["reloc_pose"], gt[r["frames"][-1]], align)
+            for r in recs if r["relocalized"]}
+    else:
+        relocs = {r["frame"]: errs[r["frame"]] for r in recs
+                  if r["relocalized"]}
+    bad_relocs = {f: e for f, e in relocs.items()
+                  if not (e[0] < RELOC_M and e[1] < RELOC_RAD)}
+    inserted_lost = [r["frame"] for r in rows if r["lost"] and r["inserted"]]
+    if chunked:
+        changed = [r["chunk"] for r in recs
+                   if r["unchanged"] is False and r["frames"][0] >= n_pass]
+        changed += [f"epilogue {a['chunk']}" for a, b in zip(recs, recs[1:])
+                    if a["unchanged"] and b["unchanged"] is not None
+                    and not set(a["events"]) & {"kf_compaction",
+                                                "pt_compaction", "loop",
+                                                "gba_merge"}
+                    and not a["unchanged_epilogue"]]
+    else:
+        changed = [r["frame"] for r in recs if r["unchanged"] is False]
+    ret_relocs = sorted(f for f in relocs if f >= start_ret)
+    tail = [r for r in rows if r["frame"] >= len(seq.frames) - 24]
+    tail_ok = all(r["ok"] and r["n_inliers"] > min_inliers_end
+                  for r in tail)
+    ret_ok = [r for r in rows if r["frame"] >= start_ret and r["ok"]]
+    ret_ate = (tum.evaluate_ate_rpe(
+        np.stack([r["pose"] for r in ret_ok]),
+        gt[[r["frame"] for r in ret_ok]]).ate_rmse * 100
+        if len(ret_ok) >= 3 else float("nan"))
+    lost = [r["frame"] for r in rows if r["lost"]]
+    m = s.map
+    kv = m.kf_valid.cpu().numpy()
+    kf_err = np.array([aligned_error(p, gt[f], align)[0] * 100
+                       for p, f in zip(m.kf_pose.cpu().numpy()[kv],
+                                       m.kf_frame_id.cpu().numpy()[kv])])
+    summary = kidnap_summary(recs, chunked, n_pass, kidnap)
+    recovery = summary["recovery_frame"]
+    out = {"resets": s.n_resets - resets_before,
+           "lost_frames": len(lost),
+           "lost_in_kidnap": sum(f < start_ret for f in lost),
+           "lost_in_return": sum(f >= start_ret for f in lost),
+           "ok_frames": len(errs),
+           "max_ok_error_cm": max((e[0] for e in errs.values()),
+                                  default=0.0) * 100,
+           "max_ok_error_rad": max((e[1] for e in errs.values()),
+                                   default=0.0),
+           "wrong_ok_frames": {f: [e[0] * 100, e[1]]
+                               for f, e in sorted(wrong.items())},
+           "relocalizations": {f: [e[0] * 100, e[1]]
+                               for f, e in sorted(relocs.items())},
+           "first_return_reloc_frame": ret_relocs[0] if ret_relocs else None,
+           "return_relocalizations": len(ret_relocs),
+           "recovery": recovery, "recovered_by": summary["recovered_by"],
+           "inserted_on_lost_frames": inserted_lost,
+           "map_changed_while_lost": changed,
+           "last_24_ok": tail_ok,
+           "last_24_min_inliers": min(r["n_inliers"] for r in tail),
+           "return_ate_cm": ret_ate, "return_ok_frames": len(ret_ok),
+           "pass_ate_cm": tum.evaluate_ate_rpe(
+               s.trajectory_tcw()[:n_pass], gt[:n_pass]).ate_rmse * 100,
+           "live_kf_error_cm": {"median": float(np.median(kf_err)),
+                                "max": float(kf_err.max())}}
+    if chunked:
+        out["boundary_events"] = {r["chunk"]: r["events"] for r in recs
+                                  if r["events"]}
+    if out["resets"]:
+        fails.append("(a) a reset")
+    if wrong:
+        fails.append("(b) OK at a wrong pose")
+    if bad_relocs:
+        fails.append("(c) a wrong relocalization")
+    if inserted_lost or changed:
+        fails.append("(d) the map moved while lost")
+    if not ret_relocs:
+        fails.append("(e1) no relocalization in the return")
+    if recovery is None or recovery < start_ret or not tail_ok:
+        fails.append("(e2) the track did not come back")
+    if not ret_ate < 5.0:
+        fails.append("(f) the return's ATE")
+    out["standing"] = [f for f in fails if f.split()[0] in standing]
+    out["fails"] = [f for f in fails if f.split()[0] not in standing]
+    out.update(summary)
+    assert not out["fails"], out
+    return out
+
+
+def probe_relocalization(s, seq, frame: int, align, seed: int = 0) -> Dict:
+    """BoW relocalization itself (`relocalization.relocalize`, the RANSAC
+    draws from a generator of its own) of `seq.frames[frame]` against
+    System `s`'s map, which it only reads: the pose it lands on, after the
+    pass alignment `align`, against the frame's truth, with its ms and
+    pose solves."""
+    from eao_fusion_tpu_torch.frontend import extractor
+    from eao_fusion_tpu_torch.pipeline import relocalization
+    cfg, dev, f = s.cfg, s.device, seq.frames[frame]
+    feats = extractor.extract_features(
+        torch.as_tensor(f.gray, device=dev),
+        torch.as_tensor(f.depth, device=dev), orb_cfg=cfg.orb,
+        cam_cfg=cfg.camera)
+    stats = {}
+    t = time.perf_counter()
+    pose, kp_pt = relocalization.relocalize(
+        s.map, feats, s.loop_closer.bow, s.loop_closer.vocab,
+        torch.Generator(device=dev).manual_seed(seed), cfg=cfg, stats=stats)
+    ms = (time.perf_counter() - t) * 1e3
+    out = {"frame": frame, "ms": ms,
+           "pose_solves": stats.get("pose_solves", 0),
+           "found": pose is not None}
+    if pose is not None:
+        dt, dr = aligned_error(pose.cpu(), _gt(seq)[frame], align)
+        out.update(error_cm=dt * 100, error_rad=dr,
+                   associated=int((kp_pt >= 0).sum()))
+    return out
+
+
+def kidnap_summary(recs, chunked: bool, n_pass: int,
+                   kidnap: int = KIDNAP_FRAMES) -> Dict:
+    """What the kidnap phase prints beside its contract: the ms of a lost
+    frame through `process_frame` (tracking, plus `relocalize`), or of an
+    epilogue after a chunk that ended lost (it tries a relocalization);
+    the recovery point, the first OK frame of the return (after a lost
+    frame, or the return's first frame), with its chunk, and what
+    recovered it: BoW relocalization (in `process_frame`, or at the
+    epilogue before its chunk) or the tracker itself."""
+    start = n_pass + kidnap
+    rows = _frames_of(recs, chunked)
+    prev = {r["frame"]: q for q, r in zip(rows, rows[1:])}
+    rec = next((r for r in rows if r["frame"] >= start and r["ok"]
+                and (r["frame"] == start or prev[r["frame"]]["lost"])),
+               None)
+    out = {"recovery_frame": None if rec is None else rec["frame"]}
+    if not chunked:
+        lost = [r for r in recs if r["lost"]]
+        tried = [r["reloc_ms"] for r in lost if r["reloc_ms"] is not None]
+        out.update(
+            lost_frame_ms_median=float(np.median([r["ms"] for r in lost]))
+            if lost else None,
+            lost_frame_ms_max=max((r["ms"] for r in lost), default=None),
+            relocalize_ms_median=float(np.median(tried)) if tried else None,
+            recovered_by=None if rec is None else (
+                "relocalization" if rec["relocalized"] else "tracking"))
+        return out
+    tried = [r for r in recs if r["status_end"] != 1]
+    chunk = next((r for r in recs if rec is not None
+                  and rec["frame"] in r["frames"]), None)
+    before = (None if chunk is None or chunk["chunk"] == recs[0]["chunk"]
+              else recs[recs.index(chunk) - 1])
+    by_reloc = (before is not None and before["relocalized"]
+                and rec["frame"] == chunk["frames"][0])
+    out.update(
+        lost_chunks=[r["chunk"] for r in tried],
+        relocalizing_epilogue_ms=[r["epilogue_ms"] for r in tried],
+        recovery_chunk=None if chunk is None else chunk["chunk"],
+        recovered_by=None if rec is None else (
+            "relocalization" if by_reloc else "tracking"))
     return out
