@@ -197,6 +197,14 @@ Phases (any failure exits non-zero and prints no result line):
      raised: the JAX package misses them from the same state; the ms of
      a lost frame or a relocalizing epilogue, the recovery point, the
      live objects before and after the kidnap;
+ 32. the port's counterpart of the JAX package's `dryrun_multichip`
+     (`eao_fusion_tpu_torch/apps/dryrun_multicard.py`) on the cards
+     present, one NCCL rank per card: the distributed GBA of the JAX
+     function's 4-camera problem with one free plane (n_iters1 = 1,
+     n_iters = 2) and the full sharded steady step (320x240, 32 keyframes,
+     2048 points, planes and objects, kf_every = 1) on an (N/2) x 2 mesh
+     (1 x 1 on one card); both OK lines, and the GBA against the same run
+     on gloo CPU ranks (poses within 1e-4, chi2 within 1e-3 relative);
  19. last, one JSON line with every kernel's numbers (launches from phase
      7), the `nvidia-smi` line, and as the last line {"ok": true,
      "device": {...}}.
@@ -208,9 +216,10 @@ just after; each holds K1 to two
 launches per tracked frame plus one per relocalization pose solve and K4
 to K2's count. No phase falls back to the CPU or to random weights, a
 failure of the GBA thread fails the run, and so does a child rank that
-fails or outlives its time limit (phases 20-21 and 24 run ranks in
+fails or outlives its time limit (phases 20-21, 24 and 32 run ranks in
 spawned processes grouped through a file store in a temporary
-directory).
+directory; in 20-21 and 24 every rank shares cuda:0, in 32 each has a
+card of its own).
 
 All times are measured on the card in this run (CUDA events for kernels,
 the host clock around synchronized work for frames). `bound_ms` is the
@@ -2394,15 +2403,20 @@ def run_ranks(target, world: int, args, timeout: float = RANK_TIMEOUT_S):
                              f"{len(late)} killed after {timeout:.0f} s")
 
 
-def _join_group(rank: int, world: int, store: str, backend: str):
-    """This rank's process group on cuda:0 (every rank of a group shares
-    the card here) through `multihost.ensure_initialized`."""
-    import torch
+def _join_group(rank: int, world: int, store: str, backend: str,
+                device: str = "cuda:0"):
+    """This rank's process group through `multihost.ensure_initialized`, the
+    rank on `device`: cuda:0 where every rank of a group shares the card
+    (phases 20, 21 and 24), cuda:{rank} for one rank per card."""
     from eao_fusion_tpu_torch.parallel import multihost
-    torch.cuda.set_device(0)
     multihost.ensure_initialized(multihost.MultihostSpec(
         coordinator_address=f"file://{store}", num_processes=world,
-        process_id=rank, backend=backend))
+        process_id=rank, backend=backend, device=device))
+
+
+def _rank_card(rank: int, spread: bool) -> str:
+    """The card of a rank: its own (`spread`) or the shared cuda:0."""
+    return f"cuda:{rank}" if spread else "cuda:0"
 
 
 @contextlib.contextmanager
@@ -2460,18 +2474,25 @@ def _timed_gba(run, solves, barrier=lambda: None):
     return res, (time.perf_counter() - t) * 1e3 / max(iters, 1), iters
 
 
-def _gba_rank(rank, world, backend, tmp, n1, n2):
-    """Phase 20's rank: the distributed GBA of the saved problem on cuda:0,
-    timed; then the all-reduce of one LM iteration's camera system alone.
-    Rank 0 writes the result and the times."""
+def _gba_tag(backend: str, world: int, spread: bool) -> str:
+    return f"{backend}{world}{'_cards' if spread else ''}"
+
+
+def _gba_rank(rank, world, backend, tmp, n1, n2, spread=False):
+    """Phase 20's rank: the distributed GBA of the saved problem on cuda:0
+    (with `spread`, on cuda:{rank}), timed; then the all-reduce of one LM
+    iteration's camera system alone. Rank 0 writes the result and the
+    times."""
     import torch
     import torch.distributed as dist
     from eao_fusion_tpu_torch.config import SolverConfig
     from eao_fusion_tpu_torch.parallel import dist_ba, mesh
-    _join_group(rank, world, os.path.join(tmp, f"store_{backend}{world}"),
-                backend)
+    tag = _gba_tag(backend, world, spread)
+    dev = _rank_card(rank, spread)
+    _join_group(rank, world, os.path.join(tmp, f"store_{tag}"), backend,
+                dev)
     m = mesh.make_mesh(device_type="cuda")
-    prob, pf, cam = _load_gba_problem(os.path.join(tmp, "gba.npz"), "cuda")
+    prob, pf, cam = _load_gba_problem(os.path.join(tmp, "gba.npz"), dev)
 
     def run():
         return dist_ba.distributed_bundle_adjust(
@@ -2481,8 +2502,7 @@ def _gba_rank(rank, world, backend, tmp, n1, n2):
     with counting_solves() as solves:
         res, ms_iter, iters = _timed_gba(run, solves, dist.barrier)
     C = prob.cam_pose.shape[0]
-    buf = torch.zeros(C * C * 36 + C * 6, dtype=torch.float64,
-                      device="cuda")
+    buf = torch.zeros(C * C * 36 + C * 6, dtype=torch.float64, device=dev)
     for _ in range(2):
         dist.all_reduce(buf)
     torch.cuda.synchronize()
@@ -2493,7 +2513,7 @@ def _gba_rank(rank, world, backend, tmp, n1, n2):
     torch.cuda.synchronize()
     ar_ms = (time.perf_counter() - t) * 1e3 / 10
     if rank == 0:
-        np.savez(os.path.join(tmp, f"gba_{backend}{world}.npz"),
+        np.savez(os.path.join(tmp, f"gba_{tag}.npz"),
                  cam_pose=res.cam_pose.cpu().numpy(),
                  pt_xyz=res.pt_xyz.cpu().numpy(),
                  pl_coeff=(res.pl_coeff.cpu().numpy()
@@ -2512,7 +2532,10 @@ def _cam_rmse(a, b) -> float:
     return float(np.sqrt((d ** 2).sum(-1).mean()))
 
 
-def phase_dist_ba(problem, loop_cfg):
+PHASE20_RUNS = (("gloo", 2, False), ("nccl", 1, False))
+
+
+def phase_dist_ba(problem, loop_cfg, runs=PHASE20_RUNS):
     """Phase 20: the GBA problem of phase 12's first closure (full width:
     256 keyframe slots x 1024 keypoint slots, 16384 points, free planes)
     under the production two-phase schedule (global_ba_iters): (a) two
@@ -2521,7 +2544,10 @@ def phase_dist_ba(problem, loop_cfg):
     2e-3, median point difference < 5e-3 m; plane normals within 1e-3);
     (b) a one-rank NCCL group against (a) within 1e-5 (only the order of
     the sums differs). ms per LM iteration of each beside the dense
-    solver's, the all-reduce's ms and bytes per iteration."""
+    solver's, the all-reduce's ms and bytes per iteration. `runs` lists
+    (backend, ranks, one card per rank) groups, the first the reference
+    (a) that the others are held to within 1e-5; every group is held to
+    the dense bounds."""
     import tempfile
 
     import torch
@@ -2539,7 +2565,7 @@ def phase_dist_ba(problem, loop_cfg):
     with tempfile.TemporaryDirectory() as tmp:
         _save_gba_problem(os.path.join(tmp, "gba.npz"), prob, pf, cam)
         dprob, dpf, _ = _load_gba_problem(os.path.join(tmp, "gba.npz"),
-                                          "cuda")
+                                          "cuda:0")
         with counting_solves() as solves:
             dense, dense_ms, dense_it = _timed_gba(
                 lambda: ba.bundle_adjust(dprob, plane_free=dpf, cam=cam,
@@ -2547,50 +2573,72 @@ def phase_dist_ba(problem, loop_cfg):
                                          n_iters2=n2), solves)
         del dprob, dpf
         torch.cuda.empty_cache()
-        runs = {}
-        for backend, world in (("gloo", 2), ("nccl", 1)):
+        got = {}
+        for backend, world, spread in runs:
+            tag = _gba_tag(backend, world, spread)
             t = time.perf_counter()
-            run_ranks(_gba_rank, world, (backend, tmp, n1, n2))
-            runs[(backend, world)] = dict(np.load(
-                os.path.join(tmp, f"gba_{backend}{world}.npz")))
-            log(f"  {world} {backend} rank(s): "
-                f"{time.perf_counter() - t:.1f} s with start-up")
-    two, one = runs[("gloo", 2)], runs[("nccl", 1)]
+            run_ranks(_gba_rank, world, (backend, tmp, n1, n2, spread))
+            got[tag] = dict(np.load(os.path.join(tmp, f"gba_{tag}.npz")))
+            got[tag]["wall_s"] = time.perf_counter() - t
+            log(f"  {world} {backend} rank(s)"
+                f"{' on cards of their own' if spread else ''}: "
+                f"{got[tag]['wall_s']:.1f} s with start-up")
     kv = prob.cam_valid.numpy()
     pv = prob.pt_valid.numpy()
-    d_pose = _cam_rmse(two["cam_pose"][kv], dense.cam_pose.cpu().numpy()[kv])
-    d_pt = float(np.median(np.linalg.norm(
-        two["pt_xyz"][pv] - dense.pt_xyz.cpu().numpy()[pv], axis=1)))
+    lv = pf.pl_free.numpy() if pf is not None else None
+
+    def vs_dense(r):
+        d = {"cam_rmse_vs_dense": _cam_rmse(
+                r["cam_pose"][kv], dense.cam_pose.cpu().numpy()[kv]),
+             "pt_median_vs_dense_m": float(np.median(np.linalg.norm(
+                 r["pt_xyz"][pv] - dense.pt_xyz.cpu().numpy()[pv],
+                 axis=1)))}
+        if pf is not None:
+            d["plane_normal_vs_dense"] = float(np.abs(
+                r["pl_coeff"][lv, :3]
+                - dense.pl_coeff.cpu().numpy()[lv, :3]).max()) \
+                if lv.any() else 0.0
+        return d
+
+    def vs_ref(r, ref):
+        return {"pose": float(np.abs(r["cam_pose"] - ref["cam_pose"]).max()),
+                "pt_rel": float((np.abs(r["pt_xyz"] - ref["pt_xyz"])
+                                 / np.maximum(np.abs(ref["pt_xyz"]),
+                                              1.0)).max()),
+                "chi2_rel": float(abs(r["chi2"] - ref["chi2"])
+                                  / max(abs(float(ref["chi2"])), 1e-9)),
+                "same_bits": all(np.array_equal(
+                    np.asarray(r[k]).reshape(-1).view(np.uint8),
+                    np.asarray(ref[k]).reshape(-1).view(np.uint8))
+                    for k in ("cam_pose", "pt_xyz", "pl_coeff", "chi2"))}
+
+    ref_tag = _gba_tag(*runs[0])
+    ref = got[ref_tag]
+    per_run = {}
+    for (backend, world, spread) in runs:
+        tag = _gba_tag(backend, world, spread)
+        r = got[tag]
+        per_run[tag] = {"ms_per_iter": float(r["ms_iter"]),
+                        "iters": int(r["iters"]),
+                        "allreduce_ms": float(r["allreduce_ms"]),
+                        "allreduce_bytes_per_iter": int(r["allreduce_bytes"]),
+                        "wall_s_with_start_up": r["wall_s"], **vs_dense(r)}
+        if tag != ref_tag:
+            per_run[tag]["vs_" + ref_tag] = vs_ref(r, ref)
     out = {"dense_ms_per_iter": dense_ms, "dense_iters": dense_it,
-           "rank2_gloo_ms_per_iter": float(two["ms_iter"]),
-           "rank2_iters": int(two["iters"]),
-           "rank1_nccl_ms_per_iter": float(one["ms_iter"]),
-           "rank1_iters": int(one["iters"]),
-           "allreduce_ms_gloo2": float(two["allreduce_ms"]),
-           "allreduce_ms_nccl1": float(one["allreduce_ms"]),
-           "allreduce_bytes_per_iter": int(two["allreduce_bytes"]),
-           "cam_rmse_vs_dense": d_pose, "pt_median_vs_dense_m": d_pt}
-    if pf is not None:
-        lv = pf.pl_free.numpy()
-        out["plane_normal_vs_dense"] = float(np.abs(
-            two["pl_coeff"][lv, :3]
-            - dense.pl_coeff.cpu().numpy()[lv, :3]).max()) if lv.any() \
-            else 0.0
-    out["one_vs_two_pose"] = float(np.abs(one["cam_pose"]
-                                          - two["cam_pose"]).max())
-    out["one_vs_two_pt_rel"] = float((np.abs(one["pt_xyz"] - two["pt_xyz"])
-                                      / np.maximum(np.abs(two["pt_xyz"]),
-                                                   1.0)).max())
-    out["one_vs_two_chi2_rel"] = float(abs(one["chi2"] - two["chi2"])
-                                       / max(abs(float(two["chi2"])), 1e-9))
+           "runs": per_run, **vs_dense(ref)}
     log("distributed BA: " + json.dumps(out))
-    if not (d_pose < 2e-3 and d_pt < 5e-3
-            and out.get("plane_normal_vs_dense", 0.0) < 1e-3):
-        raise AssertionError("the 2-rank GBA departs from the dense one")
-    if not (out["one_vs_two_pose"] < 1e-5 and out["one_vs_two_pt_rel"] < 1e-5
-            and out["one_vs_two_chi2_rel"] < 1e-5):
-        raise AssertionError("the 1-rank NCCL GBA departs from the 2-rank "
-                             "gloo one")
+    for tag, r in per_run.items():
+        if not (r["cam_rmse_vs_dense"] < 2e-3
+                and r["pt_median_vs_dense_m"] < 5e-3
+                and r.get("plane_normal_vs_dense", 0.0) < 1e-3):
+            raise AssertionError(f"the {tag} GBA departs from the dense one")
+    for tag, r in per_run.items():
+        d = r.get("vs_" + ref_tag)
+        if d is not None and not (d["pose"] < 1e-5 and d["pt_rel"] < 1e-5
+                                  and d["chi2_rel"] < 1e-5):
+            raise AssertionError(f"the {tag} GBA departs from the "
+                                 f"{ref_tag} one")
     return out
 
 
@@ -2618,21 +2666,29 @@ class _SavedSequence:
                  tcw=seq.gt_tcw())
 
 
-def _loop_rank(rank, world, tmp):
+def _loop_rank(rank, world, tmp, spread=False):
     """Phase 21's rank: rank 0 runs the loop cell's System with
     gba_mesh_devices = world and writes its numbers; the others serve
-    the GBA."""
+    the GBA. Gloo ranks sharing cuda:0, or with `spread` NCCL ranks on
+    cards of their own."""
+    import torch
+    import torch.distributed as dist
     from eao_fusion_tpu_torch.parallel import dist_ba, mesh
-    _join_group(rank, world, os.path.join(tmp, "store"), "gloo")
+    dev = _rank_card(rank, spread)
+    _join_group(rank, world, os.path.join(tmp, "store"),
+                "nccl" if spread else "gloo", dev)
     cfg = _loop_cfg().replace(gba_mesh_devices=world)
     if rank:
         c = cfg.camera
         served = dist_ba.serve_gba(mesh.make_mesh(n_landmark=world),
                                    (c.fx, c.fy, c.cx, c.cy, c.bf),
                                    cfg.solver)
-        log(f"rank {rank}: served {served} GBA stages")
+        log(f"rank {rank}: served {served} GBA stages on {dev}")
         with open(os.path.join(tmp, f"served_{rank}.json"), "w") as f:
-            json.dump(served, f)
+            json.dump({"served": served, "device": dev,
+                       "peak_bytes": torch.cuda.max_memory_allocated(dev)},
+                      f)
+        dist.destroy_process_group()
         return
     seq = _SavedSequence(os.path.join(tmp, "spin.npz"))
     hooks = {}
@@ -2644,6 +2700,7 @@ def _loop_rank(rank, world, tmp):
         out = check_loop_run(s, seq, summary, counts, hooks["timed"],
                              "loop closing, mesh GBA")
         out["launches"] = counts
+        out["device"] = str(s.device)
     finally:
         lc = hooks.get("lc")
         if lc is not None:
@@ -2651,40 +2708,49 @@ def _loop_rank(rank, world, tmp):
             dist_ba.stop_gba_server(lc.gba_mesh)
     with open(os.path.join(tmp, "loop.json"), "w") as f:
         json.dump(out, f)
+    dist.destroy_process_group()
 
 
-def phase_loop_mesh(loop_out):
-    """Phase 21: the loop cell with gba_mesh_devices = 2, two processes on
-    the card (rank 0 the System, rank 1 `serve_gba`), the spin15 frames
-    of phase 12 handed over in an npz: the loop cell's bounds and launch
-    counts (`check_loop_run`), every GBA stage served, and the GBA's ms
-    beside phase 12's."""
+def phase_loop_mesh(loop_out, world: int = 2, spread: bool = False):
+    """Phase 21: the loop cell with gba_mesh_devices = `world`, `world`
+    processes (rank 0 the System, the others `serve_gba`) on the card
+    (with `spread`, NCCL ranks on cards 0..world-1), the spin15 frames of
+    phase 12 handed over in an npz: the loop cell's bounds and launch
+    counts (`check_loop_run`), every GBA stage served by every other
+    rank, and the GBA's ms beside phase 12's."""
     import tempfile
     cfg = _loop_cfg()
     seq = _spin(cfg.camera)
     with tempfile.TemporaryDirectory() as tmp:
         _SavedSequence.save(os.path.join(tmp, "spin.npz"), seq)
         t = time.perf_counter()
-        run_ranks(_loop_rank, 2, (tmp,))
+        run_ranks(_loop_rank, world, (tmp, spread))
         wall = time.perf_counter() - t
         with open(os.path.join(tmp, "loop.json")) as f:
             out = json.load(f)
-        with open(os.path.join(tmp, "served_1.json")) as f:
-            served = json.load(f)
+        servers = []
+        for r in range(1, world):
+            with open(os.path.join(tmp, f"served_{r}.json")) as f:
+                servers.append(json.load(f))
     stages = len(out["gba_stage_ms"])
-    log("loop closing, mesh GBA against phase 12: " + json.dumps({
-        "wall_s_with_start_up": wall, "stages_served": served,
-        "gba_whole_ms_mean": out["gba_whole_ms_mean"],
-        "gba_whole_ms_mean_phase12": loop_out["gba_whole_ms_mean"],
-        "gba_stage_ms": out["gba_stage_ms"],
-        "gba_stage_ms_phase12": loop_out["gba_stage_ms"],
-        "median_tracking_frame_ms_gba_inflight":
-            out["median_tracking_frame_ms_gba_inflight"],
-        "median_tracking_frame_ms_gba_inflight_phase12":
-            loop_out["median_tracking_frame_ms_gba_inflight"]}))
-    if served != stages or served < 1:
-        raise AssertionError(f"rank 1 served {served} GBA stages, rank 0 "
-                             f"ran {stages}")
+    out["servers"] = servers
+    out["wall_s_with_start_up"] = wall
+    where = ", one card each" if spread else ""
+    log(f"loop closing, mesh GBA ({world} ranks{where}) against phase 12: "
+        + json.dumps({
+            "wall_s_with_start_up": wall, "servers": servers,
+            "gba_whole_ms_mean": out["gba_whole_ms_mean"],
+            "gba_whole_ms_mean_phase12": loop_out["gba_whole_ms_mean"],
+            "gba_stage_ms": out["gba_stage_ms"],
+            "gba_stage_ms_phase12": loop_out["gba_stage_ms"],
+            "median_tracking_frame_ms_gba_inflight":
+                out["median_tracking_frame_ms_gba_inflight"],
+            "median_tracking_frame_ms_gba_inflight_phase12":
+                loop_out["median_tracking_frame_ms_gba_inflight"]}))
+    for r, sv in enumerate(servers, 1):
+        if sv["served"] != stages or stages < 1:
+            raise AssertionError(f"rank {r} served {sv['served']} GBA "
+                                 f"stages, rank 0 ran {stages}")
     return out
 
 
@@ -2698,12 +2764,14 @@ def _arc_loader(n, seed, style, dn=0.0):
     return make
 
 
-def phase_eval():
+def phase_eval(devices=("cuda:0",)):
     """Phase 22: `evaluate_sequences` over three short sequences
     (tests/test_parallel_eval.py's: arcs of 12 frames, seeds 0 and 5 with
     1 cm depth noise, and a 15-frame forward run) in three threads on
-    cuda:0, against a serial run: the same keyframe counts, ATE within
-    1e-6, each ATE < 2 cm; K4 as often as K2 over the threaded runs."""
+    `devices` (None: every card, the default of `evaluate_sequences`),
+    against a serial run on cuda:0: the same keyframe counts, ATE within
+    1e-6, each ATE < 2 cm, sequence i on devices[i % len(devices)]; K4
+    as often as K2 over the threaded runs."""
     from eao_fusion_tpu_torch import kernels
     from eao_fusion_tpu_torch.config import MapCapacity, ORBConfig, \
         SystemConfig
@@ -2728,25 +2796,32 @@ def phase_eval():
     torch.cuda.synchronize()
     kernels.reset_launches()
     t = time.perf_counter()
-    par = peval.evaluate_sequences(seqs, cfg, devices=["cuda:0"])
-    torch.cuda.synchronize()
+    par = peval.evaluate_sequences(seqs, cfg, devices=devices)
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
     par_s = time.perf_counter() - t
+    cards = list(devices or [f"cuda:{i}"
+                             for i in range(torch.cuda.device_count())])
     counts = dict(kernels.launches)
     log(peval.summarize(par))
     log("evaluation: " + json.dumps({
         "serial_s": ser_s, "threads_s": par_s, "launches": counts,
         "ate_cm": [r.ate_rmse * 100 for r in par],
         "ate_gap_vs_serial": [abs(a.ate_rmse - b.ate_rmse)
-                              for a, b in zip(par, ser)]}))
-    for rp, rs in zip(par, ser):
+                              for a, b in zip(par, ser)],
+        "devices": [r.device for r in par]}))
+    for i, (rp, rs) in enumerate(zip(par, ser)):
         if not (rp.n_keyframes == rs.n_keyframes
                 and abs(rp.ate_rmse - rs.ate_rmse) <= 1e-6
-                and rp.ate_rmse < 0.02 and rp.device == "cuda:0"):
+                and rp.ate_rmse < 0.02
+                and rp.device == cards[i % len(cards)]):
             raise AssertionError(f"{rp} against the serial {rs}")
     if counts["pose_opt"] < 1 or counts["chol_solve"] != \
             counts["ba_edge_full"] or counts["ba_edge_full"] < 1:
         raise AssertionError(f"evaluation launches {counts}")
-    return {"serial_s": ser_s, "threads_s": par_s}
+    return {"serial_s": ser_s, "threads_s": par_s, "launches": counts,
+            "devices": [r.device for r in par],
+            "ate_cm": [r.ate_rmse * 100 for r in par]}
 
 
 def phase_vocab():
@@ -2829,21 +2904,21 @@ def _save_steady(tmp, s, cfg, frames) -> None:
              ts=np.array([f.timestamp for f in frames], np.float32))
 
 
-def _load_steady(tmp, cfg):
-    """(the steady carry restored from `_save_steady` on the card, the
-    frames as card tensors); the same bits in every process."""
+def _load_steady(tmp, cfg, device="cuda:0"):
+    """(the steady carry restored from `_save_steady` on `device`, the
+    frames as tensors there); the same bits in every process."""
     import torch
     from eao_fusion_tpu_torch.io import checkpoint
     from eao_fusion_tpu_torch.pipeline import steady
     from eao_fusion_tpu_torch.pipeline.system import System
-    s = System(cfg.replace(use_loop_closing=False))
+    s = System(cfg.replace(use_loop_closing=False), device=device)
     checkpoint.load_state(os.path.join(tmp, "steady.npz"), s)
     s.generator.set_state(torch.from_numpy(
         np.load(os.path.join(tmp, "steady_gen.npy"))))
     z = np.load(os.path.join(tmp, "frames.npz"))
-    frames = [(torch.as_tensor(z["gray"][t], device="cuda"),
-               torch.as_tensor(z["depth"][t], device="cuda"),
-               torch.as_tensor(z["boxes"][t], device="cuda"),
+    frames = [(torch.as_tensor(z["gray"][t], device=device),
+               torch.as_tensor(z["depth"][t], device=device),
+               torch.as_tensor(z["boxes"][t], device=device),
                float(z["ts"][t])) for t in range(len(z["ts"]))]
     return steady.init_steady_state(s), frames
 
@@ -2890,22 +2965,29 @@ def _steady_record(st) -> dict:
     return out
 
 
-def _sharded_rank(rank, world, backend, shape, tmp):
+def _sharded_tag(backend: str, shape, spread: bool) -> str:
+    return f"{backend}{shape[0]}x{shape[1]}{'_cards' if spread else ''}"
+
+
+def _sharded_rank(rank, world, backend, shape, tmp, spread=False):
     """Phase 24's rank: the sharded steady step on a `shape` mesh of ranks
-    sharing the card, from the handed-over state, every frame timed (the
-    collectives too: `ShardedMap.timed`) and the replicated state checked
-    across the ranks after it. Each rank writes its launches, block
-    shapes, resident and peak bytes; rank 0 the per-frame record and the
-    gathered final state."""
+    sharing the card (with `spread`, rank r on cuda:r), from the
+    handed-over state, every frame timed (the collectives too:
+    `ShardedMap.timed`) and the replicated state checked across the ranks
+    after it. Each rank writes its launches, block shapes, device,
+    resident and peak bytes; rank 0 the per-frame record and the gathered
+    final state."""
     import torch
     import torch.distributed as dist
     from eao_fusion_tpu_torch.config import tum_fr3_config
     from eao_fusion_tpu_torch.parallel import mesh, sharded_step
-    tag = f"{backend}{shape[0]}x{shape[1]}"
-    _join_group(rank, world, os.path.join(tmp, f"store_{tag}"), backend)
+    tag = _sharded_tag(backend, shape, spread)
+    dev = _rank_card(rank, spread)
+    _join_group(rank, world, os.path.join(tmp, f"store_{tag}"), backend,
+                dev)
     cfg = tum_fr3_config()
     dm = mesh.make_mesh(*shape, device_type="cuda")
-    st, frames = _load_steady(tmp, cfg)
+    st, frames = _load_steady(tmp, cfg, dev)
     whole_bytes = _map_bytes(st.m)
     sst = sharded_step.shard_state(st, dm)
     del st
@@ -2918,6 +3000,7 @@ def _sharded_rank(rank, world, backend, shape, tmp):
                                    sharded_step.assert_replicated)
     m = sst.m
     info = {"launches": counts, "coord": list(sst.maps.coord),
+            "device": str(m.pt_xyz.device),
             "pt_rows": m.pt_xyz.shape[0], "kf_rows": m.kf_pose.shape[0],
             "obs_block": list(m.obs_ind.shape),
             "resident_bytes": _map_bytes(m), "whole_map_bytes": whole_bytes,
@@ -2943,7 +3026,8 @@ def _medians(per) -> dict:
             for part, sel in (("tracked", ~kf), ("keyframe", kf))}
 
 
-def phase_sharded_step(smi_line: str):
+def phase_sharded_step(smi_line: str, meshes=SHARDED_MESHES,
+                       spread: bool = False):
     """Phase 24: the steady cell's configuration, `tum_fr3_config()` at
     full width (planes, objects with the renderer's boxes): rank 0 warms a
     System with `process_frame` on 8 frames of the 20-frame arc, as phase
@@ -2957,7 +3041,9 @@ def phase_sharded_step(smi_line: str):
     frame, K4 as often as K2) and the blocks P / n_lm point rows, K / n_kf
     keyframe rows, [K / n_kf, P / n_lm] of obs_ind. Prints the ms per
     frame (tracked and keyframe medians), the collectives' calls, bytes
-    and ms, and each rank's resident and peak map bytes."""
+    and ms, and each rank's resident and peak map bytes. `meshes` and
+    `spread` (rank r on cuda:r) give other meshes of NCCL ranks on cards
+    of their own."""
     import tempfile
     import torch
     from eao_fusion_tpu_torch.config import tum_fr3_config
@@ -2983,11 +3069,12 @@ def phase_sharded_step(smi_line: str):
         if ref["kf_inserted"].sum() < 1:
             raise AssertionError("no keyframe inserted in the 12 frames")
         _check_launches(ref_counts, len(frames), 0)
-        for (backend, shape), name in zip(SHARDED_MESHES, "bcd"):
+        for (backend, shape), name in zip(meshes, "bcdefg"):
             n_lm, n_kf = shape
-            tag = f"{backend}{n_lm}x{n_kf}"
+            tag = _sharded_tag(backend, shape, spread)
             t = time.perf_counter()
-            run_ranks(_sharded_rank, n_lm * n_kf, (backend, shape, tmp))
+            run_ranks(_sharded_rank, n_lm * n_kf,
+                      (backend, shape, tmp, spread))
             wall = time.perf_counter() - t
             z = dict(np.load(os.path.join(tmp, f"{tag}.npz")))
             per = {k[4:]: v for k, v in z.items() if k.startswith("per.")}
@@ -2999,7 +3086,8 @@ def phase_sharded_step(smi_line: str):
                 calls_per_frame=per["calls"].tolist(),
                 resident_bytes=[i["resident_bytes"] for i in infos],
                 whole_map_bytes=infos[0]["whole_map_bytes"],
-                peak_bytes=[i["peak_bytes"] for i in infos])
+                peak_bytes=[i["peak_bytes"] for i in infos],
+                devices=[i["device"] for i in infos])
             for k in ("kf_inserted", "n_inliers"):
                 if not np.array_equal(per[k], ref[k]):
                     raise AssertionError(f"{tag}: {k} {per[k].tolist()} "
@@ -3545,6 +3633,41 @@ def phase_kidnap(smi_line: str, exploration=None, inputs=None):
     return out
 
 
+# ------------------------------------------------ phase 32: the dry run
+
+def phase_dryrun_multicard(smi_line: str, cards: int = None):
+    """Phase 32: `apps/dryrun_multicard` (the port's `dryrun_multichip`)
+    on `cards` cards (all present by default), one NCCL rank per card (one
+    rank on a one-card machine), and on as many gloo ranks on the CPU:
+    both checks of each pass (their OK lines print), the card run's group
+    is NCCL with rank r on cuda:r, and its GBA's poses are within 1e-4 and
+    its chi2 within 1e-3 relative of the CPU run's."""
+    import torch
+    from eao_fusion_tpu_torch.apps import dryrun_multicard as dm
+    n = torch.cuda.device_count() if cards is None else cards
+    card = dm.run(n)
+    cpu = dm.run(n, "cpu")
+    rel = abs(card["chi2"] - cpu["chi2"]) / abs(cpu["chi2"])
+    pose = float(np.abs(card["dist_ba"]["cam_pose"]
+                        - cpu["dist_ba"]["cam_pose"]).max())
+    out = {"cards": n, "backend": card["backend"],
+           "devices": [r["device"] for r in card["ranks"]],
+           "chi2": card["chi2"], "chi2_cpu_gloo": cpu["chi2"],
+           "chi2_rel": rel, "pose_vs_cpu": pose,
+           "pt_blocks": card["pt_blocks"], "mesh": card["mesh"],
+           "wall_s_with_start_up": card["wall_s"],
+           "rank_dist_ba_s": [r["dist_ba_s"] for r in card["ranks"]],
+           "rank_step_s": [r["step_s"] for r in card["ranks"]]}
+    log(f"dryrun_multicard (32): {json.dumps(out)}; {smi_line}")
+    if card["backend"] != "nccl" or out["devices"] != [
+            f"cuda:{r}" for r in range(n)]:
+        raise AssertionError(f"the dry run's ranks: {out}")
+    if not (pose < 1e-4 and rel <= 1e-3):
+        raise AssertionError(f"the dry run's GBA on the cards departs from "
+                             f"the CPU ranks': {out}")
+    return out
+
+
 def _check_probe(probe: dict) -> None:
     """BoW relocalization of the return's first frame lands within 5 cm
     and 0.05 rad of its truth."""
@@ -3622,6 +3745,7 @@ def main() -> int:
         phase_fr3_scale(smi_line)
         phase_kidnap(smi_line, handed.pop("exploration"),
                      _contract_inputs())
+        phase_dryrun_multicard(smi_line)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -21,13 +21,18 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """The device an entry point runs on: `cuda` unless the caller names
-    another. With no card present and no device named this raises; there
-    is no silent CPU fallback."""
+    """The device an entry point runs on: the current card unless the
+    caller names another. A card is always indexed (`cuda` becomes
+    `cuda:{current}`), so that every thread that works for the entry point
+    can enter it: a new thread starts on card 0. With no card present and
+    no device named this raises; there is no silent CPU fallback."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch path on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -55,6 +55,7 @@
 //
 // Plain C interface (ctypes): chol_solve_launch returns cudaGetLastError().
 
+#include <atomic>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -325,18 +326,33 @@ chol_solve_kernel(const float* __restrict__ M, const float* __restrict__ b,
 
 }  // namespace
 
+constexpr int kMaxCards = 64;
+constexpr int kMaxD = 288;   // the largest D whose tiles fit in 227 KB
+
 // `bytes`: the shared memory of the block from the wrapper; it must hold
-// smem_floats(D) floats.
+// smem_floats(D) floats. Launched on the current card (the wrapper enters
+// the tensors' card first).
 extern "C" int chol_solve_launch(const float* M, const float* b, float* x,
                                  int D, int bytes, void* stream) {
-  if (D <= 0 || static_cast<size_t>(bytes) < sizeof(float) * smem_floats(D))
+  const size_t max_bytes = sizeof(float) * smem_floats(kMaxD);
+  if (D <= 0 || D > kMaxD ||
+      static_cast<size_t>(bytes) < sizeof(float) * smem_floats(D) ||
+      static_cast<size_t>(bytes) > max_bytes)
     return static_cast<int>(cudaErrorInvalidValue);
-  static int attr_bytes = 0;   // the largest size set on the kernel so far
-  if (bytes > attr_bytes) {
-    cudaError_t err = cudaFuncSetAttribute(
-        chol_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  // The shared-memory opt-in holds for the current card only, and is set
+  // to the exact value given: so each card gets it once, at the size of
+  // the largest D, and no launch on any thread ever lowers it.
+  static std::atomic<bool> opted_in[kMaxCards];
+  int card = 0;
+  cudaError_t err = cudaGetDevice(&card);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (card >= kMaxCards) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!opted_in[card].load()) {
+    err = cudaFuncSetAttribute(chol_solve_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(max_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    attr_bytes = bytes;
+    opted_in[card].store(true);
   }
   chol_solve_kernel<<<1, kThreads, bytes,
                       static_cast<cudaStream_t>(stream)>>>(M, b, x, D);

@@ -7,10 +7,13 @@ at once) into `build/kernels/` beside the package; a library's file name
 carries a hash of its source, so an edited source is rebuilt. Nothing here
 runs when the module is imported, so the CPU tests import it freely.
 
-Every wrapper adds one to `launches[<kernel>]` (`count_launch`) where it
-launches its kernel, and nowhere else; `reset_launches()` sets the counts
-to 0. Building, loading and counting are safe across threads (the
-data-parallel evaluator runs a System in each).
+Every wrapper launches through `launch`, which enters the tensors' card
+(a ctypes call is outside PyTorch's device guard, so a launch would go to
+the calling thread's current card, and a new thread starts on card 0),
+hands the launcher that card's current stream, raises on a CUDA error and
+adds one to `launches[<kernel>]`; nothing else counts. `reset_launches()`
+sets the counts to 0. Building, loading and launching are safe across
+threads (the data-parallel evaluator runs a System in each).
 """
 
 from __future__ import annotations
@@ -81,8 +84,13 @@ def reset_launches() -> None:
             launches[k] = 0
 
 
-def count_launch(kernel: str) -> None:
-    """Add one to the launch count of `kernel`."""
+def launch(kernel: str, fn, device: torch.device, *args) -> None:
+    """Call the C launcher `fn(*args, stream)` on `device` with that card's
+    current stream, raise if it returns a CUDA error, and add one to the
+    launch count of `kernel`."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, fn.__name__)
     with _count_lock:
         launches[kernel] += 1
 
@@ -164,10 +172,6 @@ def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error (`cudaGetLastError`)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
-
-
-def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:

@@ -56,6 +56,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from eao_fusion_tpu_torch.config import SolverConfig
 from eao_fusion_tpu_torch.ops import lie
+from eao_fusion_tpu_torch.parallel import multihost
 from eao_fusion_tpu_torch.solvers.ba import (BAProblem, BAResult,
                                              PlaneFreeBlock, _inv3x3,
                                              _lm_phase, _plane_free_terms,
@@ -415,8 +416,10 @@ def _send_header(mesh: DeviceMesh, hdr) -> None:
 
 
 def _mesh_device(mesh: DeviceMesh) -> torch.device:
+    """The rank's device on the mesh: its card (`multihost.local_device`),
+    or the mesh's device type."""
     if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
+        return multihost.local_device()
     return torch.device(mesh.device_type)
 
 

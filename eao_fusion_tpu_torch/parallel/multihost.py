@@ -6,7 +6,9 @@ JAX forms one process group per host and lets XLA pick the transport. A
 its backend named: `nccl` when each rank has a card of its own, `gloo`
 for ranks on the CPU and for several ranks that share one card (NCCL
 refuses two ranks on one device; gloo's collectives on CUDA tensors copy
-through the host). Rank r works on `cuda:{r % device_count}`.
+through the host). Rank r works on `cuda:{LOCAL_RANK}` where a launcher
+sets `LOCAL_RANK` (the rank within its host), else on
+`cuda:{r % device_count}`, unless the spec names its device.
 
 The same `EAO_*` variables describe the group: `EAO_COORDINATOR`
 ("host:port", or an init URL such as "file:///path/store"),
@@ -26,6 +28,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from eao_fusion_tpu_torch import resolve_device
+
 # a rank that dies fails its peers' collectives after this long instead of
 # hanging them; generous, since gloo moves a full-width GBA's 18.9 MB
 # camera system through the host on every LM iteration (16 ms on an H100's
@@ -41,6 +45,7 @@ class MultihostSpec:
     num_processes: Optional[int] = None
     process_id: Optional[int] = None
     backend: Optional[str] = None   # "nccl" / "gloo"; None: _default_backend
+    device: Optional[str] = None    # this rank's device; None: _rank_device
 
     @staticmethod
     def from_env() -> "MultihostSpec":
@@ -58,16 +63,38 @@ def _int_env(name: str) -> Optional[int]:
 
 
 def _default_backend(num_processes: int) -> str:
-    """`nccl` when every rank has a card of its own, else `gloo`."""
+    """`nccl` when every rank of this host has a card of its own, else
+    `gloo`. The host's ranks: `LOCAL_WORLD_SIZE` where a launcher sets it,
+    else all `num_processes`."""
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    return "nccl" if n >= max(num_processes, 1) else "gloo"
+    local = _int_env("LOCAL_WORLD_SIZE") or num_processes
+    return "nccl" if n >= max(local, 1) else "gloo"
 
 
 def _rank_device(rank: int) -> torch.device:
-    """The device of rank `rank`: `cuda:{rank % device_count}`, or the CPU
-    on a machine without a card."""
+    """The device of rank `rank`: `cuda:{LOCAL_RANK}` where a launcher sets
+    it (the global rank counts the ranks of every host), else
+    `cuda:{rank % device_count}`; the CPU on a machine without a card."""
     if torch.cuda.is_available():
-        return torch.device("cuda", rank % torch.cuda.device_count())
+        local = _int_env("LOCAL_RANK")
+        return torch.device("cuda", (rank if local is None else local)
+                            % torch.cuda.device_count())
+    return torch.device("cpu")
+
+
+# the device `ensure_initialized` selected for this process's rank
+_device: Optional[torch.device] = None
+
+
+def local_device() -> torch.device:
+    """This process's device in the group: the one `ensure_initialized`
+    selected (the spec's, or `_rank_device`), else the current card, else
+    the CPU. Indexed, so that a thread other than the one that formed the
+    group (a new thread starts on card 0) can enter it."""
+    if _device is not None:
+        return _device
+    if torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
 
@@ -76,7 +103,9 @@ def ensure_initialized(spec: Optional[MultihostSpec] = None) -> bool:
 
     Returns True when a group of more than one process is active after the
     call, False for a plain single-process run (a no-op then). On a
-    machine with a card each rank selects its device first."""
+    machine with a card each rank selects its device first: the spec's,
+    else `_rank_device`."""
+    global _device
     if dist.is_initialized():
         return dist.get_world_size() > 1
     spec = spec if spec is not None else MultihostSpec.from_env()
@@ -96,8 +125,11 @@ def ensure_initialized(spec: Optional[MultihostSpec] = None) -> bool:
         world = int(os.environ["WORLD_SIZE"])
         rank = int(os.environ["RANK"])
     backend = spec.backend or _default_backend(world)
-    if torch.cuda.is_available():
-        torch.cuda.set_device(_rank_device(rank))
+    dev = (resolve_device(spec.device) if spec.device is not None
+           else _rank_device(rank))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    _device = dev
     dist.init_process_group(
         backend=backend, init_method=init, world_size=world, rank=rank,
         timeout=datetime.timedelta(seconds=TIMEOUT_S))

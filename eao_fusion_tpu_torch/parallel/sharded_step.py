@@ -127,10 +127,11 @@ def _check_mesh(mesh: DeviceMesh, n_points: int, n_keyframes: int) -> None:
 
 
 def _device(mesh: DeviceMesh) -> torch.device:
-    """The rank's device: the CPU on a CPU mesh, else its card."""
+    """The rank's device: the CPU on a CPU mesh, else its card
+    (`multihost.local_device`)."""
     if mesh.device_type == "cpu":
         return torch.device("cpu")
-    return multihost._rank_device(dist.get_rank())
+    return multihost.local_device()
 
 
 class ShardedMap(tracking.WholeMap):

@@ -17,7 +17,8 @@ as in the JAX package. The RANSAC draws come from the System's
 
 Asynchronous GBA: the JAX package runs it on a host thread that dispatches
 short stage programs while tracking goes on (`:623-653,727-753`). Here the
-thread runs its stages on a CUDA stream of its own, which first waits for
+thread enters the System's card (a new thread starts on card 0) and runs
+its stages on a CUDA stream of its own, which first waits for
 an event recorded on the caller's stream when the snapshot is taken; the
 snapshot's tensors are copies, so nothing the main path does later can
 reach them. The thread waits for its stream before it ends, and the merge
@@ -720,7 +721,9 @@ class LoopCloser:
                 t0 = time.perf_counter()
                 done = None
                 if cuda:
-                    with torch.cuda.stream(stream):
+                    # the thread starts on card 0: enter the System's card
+                    with torch.cuda.device(self.device), \
+                            torch.cuda.stream(stream):
                         stream.wait_event(ready)
                         res = self._run_gba_stages(prob, plane_free, abort)
                         done = torch.cuda.Event()

@@ -269,11 +269,9 @@ class EdgePass:
             return edge_sums_plain(self._plain_inputs(cam_pose, pt_xyz),
                                    active, self._tgt, **self._kw)
         self._check(cam_pose, pt_xyz, active)
-        err = self._lib.ba_edge_full_launch(
-            self._argp, cam_pose.data_ptr(), pt_xyz.data_ptr(),
-            active.data_ptr(), kernels.stream_ptr(self.device))
-        kernels.check(err, "ba_edge_full_launch")
-        kernels.count_launch("ba_edge_full")
+        kernels.launch("ba_edge_full", self._lib.ba_edge_full_launch,
+                       self.device, self._argp, cam_pose.data_ptr(),
+                       pt_xyz.data_ptr(), active.data_ptr())
         return self._acc_c, self._acc_p, self._y
 
     def chi2_sum(self, cam_pose: torch.Tensor, pt_xyz: torch.Tensor,
@@ -284,12 +282,10 @@ class EdgePass:
             return chi2_sum_plain(self._plain_inputs(cam_pose, pt_xyz),
                                   active, **self._kw)
         self._check(cam_pose, pt_xyz, active)
-        err = self._lib.ba_edge_chi2_launch(
-            self._argp, cam_pose.data_ptr(), pt_xyz.data_ptr(),
-            active.data_ptr(), self._sum.data_ptr(), None,
-            kernels.stream_ptr(self.device))
-        kernels.check(err, "ba_edge_chi2_launch")
-        kernels.count_launch("ba_edge_chi2")
+        kernels.launch("ba_edge_chi2", self._lib.ba_edge_chi2_launch,
+                       self.device, self._argp, cam_pose.data_ptr(),
+                       pt_xyz.data_ptr(), active.data_ptr(),
+                       self._sum.data_ptr(), None)
         return self._sum
 
     def chi2_edges(self, cam_pose: torch.Tensor, pt_xyz: torch.Tensor,
@@ -303,10 +299,8 @@ class EdgePass:
         self._check(cam_pose, pt_xyz, active)
         out = torch.empty((3, self.E), dtype=torch.float32,
                           device=self.device)
-        err = self._lib.ba_edge_chi2_launch(
-            self._argp, cam_pose.data_ptr(), pt_xyz.data_ptr(),
-            active.data_ptr(), None, out.data_ptr(),
-            kernels.stream_ptr(self.device))
-        kernels.check(err, "ba_edge_chi2_launch")
-        kernels.count_launch("ba_edge_chi2")
+        kernels.launch("ba_edge_chi2", self._lib.ba_edge_chi2_launch,
+                       self.device, self._argp, cam_pose.data_ptr(),
+                       pt_xyz.data_ptr(), active.data_ptr(), None,
+                       out.data_ptr())
         return out[0], out[1], out[2]

@@ -84,8 +84,6 @@ def cholesky_solve_cuda(M: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     kernels.require(rhs, "rhs", f32, (D,))
     x = torch.empty(D, dtype=f32, device=M.device)
     lib = kernels.library("chol_solve")
-    err = lib.chol_solve_launch(M.data_ptr(), rhs.data_ptr(), x.data_ptr(), D,
-                                smem, kernels.stream_ptr(M.device))
-    kernels.check(err, "chol_solve_launch")
-    kernels.count_launch("chol_solve")
+    kernels.launch("chol_solve", lib.chol_solve_launch, M.device,
+                   M.data_ptr(), rhs.data_ptr(), x.data_ptr(), D, smem)
     return x

@@ -230,15 +230,14 @@ def optimize_pose_cuda(pose0: torch.Tensor, obs: PoseObs,
     chi2 = torch.empty((), dtype=f32, device=dev)
     fx, fy, cx, cy, bf = (float(c) for c in cam)
     lib = kernels.library("pose_opt")
-    err = lib.pose_opt_launch(
+    kernels.launch(
+        "pose_opt", lib.pose_opt_launch, dev,
         pose0.data_ptr(), *(t.data_ptr() for t in obs), M, *planes, Q,
         fx, fy, cx, cy, bf, int(cfg.pose_rounds),
         int(cfg.pose_iters_per_round), float(cfg.chi2_mono),
         float(cfg.chi2_stereo), float(cfg.plane_angle_info),
         float(cfg.plane_dist_info), float(cfg.plane_chi2),
         pose.data_ptr(), inliers.data_ptr(), n_inliers.data_ptr(),
-        chi2.data_ptr(), kernels.stream_ptr(dev))
-    kernels.check(err, "pose_opt_launch")
-    kernels.count_launch("pose_opt")
+        chi2.data_ptr())
     return PoseOptResult(pose=pose, inliers=inliers, n_inliers=n_inliers,
                          chi2=chi2)

@@ -352,3 +352,88 @@ def job_allreduce_payload(rank, world, tmp, args):
         with open(os.path.join(tmp, f"{args['name']}_payload.json"),
                   "w") as f:
             json.dump(calls, f)
+
+
+# ------------------------------------------------------- cards of their own
+
+def job_dist_ba_cards(rank, world, tmp, args):
+    """`distributed_bundle_adjust` of the problem in `<args["name"]>.npz`
+    on a group that `multihost.ensure_initialized` forms (start the ranks
+    with group=False): backend args["backend"], rank r on
+    args["devices"][r]. Rank 0 writes the result to
+    `<name>_<args["tag"]>.npz`."""
+    import torch
+    import torch.distributed as dist
+    from eao_fusion_tpu_torch.config import SolverConfig
+    from eao_fusion_tpu_torch.parallel import dist_ba, mesh, multihost
+    tag = args["tag"]
+    dev = args["devices"][rank]
+    multihost.ensure_initialized(multihost.MultihostSpec(
+        coordinator_address=f"file://{os.path.join(tmp, 'store_' + tag)}",
+        num_processes=world, process_id=rank, backend=args["backend"],
+        device=dev))
+    if dist.get_backend() != args["backend"]:
+        raise RuntimeError(f"formed a {dist.get_backend()} group")
+    prob, pf = load_problem(os.path.join(tmp, f"{args['name']}.npz"), dev)
+    res = dist_ba.distributed_bundle_adjust(
+        prob, mesh.make_mesh(device_type=torch.device(dev).type),
+        plane_free=pf, cam=tuple(args["cam"]), cfg=SolverConfig(),
+        n_iters1=args["n_iters1"], n_iters=args["n_iters"])
+    if rank == 0:
+        np.savez(os.path.join(tmp, f"{args['name']}_{tag}.npz"),
+                 **result_arrays(res))
+
+
+def job_system_on_card(rank, world, tmp, args):
+    """A fresh process that never selects a card: `System(cfg,
+    device=args["device"])` over the frames in `arc.npz`, then one GBA of
+    the final map on a loop closer's thread (`launch_gba_async`, a
+    blocking `poll_gba`). Writes `system_<card index>.npz`: the raw ATE
+    (cm), the launch counts, every field of the merged map, and the bytes
+    the caching allocator holds on each card."""
+    import torch
+    from eao_fusion_tpu_torch import kernels
+    from eao_fusion_tpu_torch.io import tum
+    from eao_fusion_tpu_torch.mapping import map_state, vocabulary
+    from eao_fusion_tpu_torch.pipeline.loop_closing import LoopCloser
+    from eao_fusion_tpu_torch.pipeline.system import System
+    cfg, dev = args["cfg"], torch.device(args["device"])
+    z = np.load(os.path.join(tmp, "arc.npz"))
+    s = System(cfg, device=dev)
+    kernels.reset_launches()
+    for i in range(len(z["ts"])):
+        s.process_frame(z["gray"][i], z["depth"][i], float(z["ts"][i]))
+    torch.cuda.synchronize(dev)
+    launches = dict(kernels.launches)
+    ate = tum.evaluate_ate_rpe(s.trajectory_tcw(), z["tcw"]).ate_rmse
+    lc = LoopCloser(cfg, vocabulary.Vocabulary.load(device=dev),
+                    torch.Generator(device=dev))
+    lc.launch_gba_async(s.map)
+    m, merged = lc.poll_gba(s.map, blocking=True)
+    torch.cuda.synchronize(dev)
+    mem = [torch.cuda.memory_allocated(i)
+           for i in range(torch.cuda.device_count())]
+    np.savez(os.path.join(tmp, f"system_{dev.index}.npz"),
+             ate_cm=ate * 100.0, launches=json.dumps(launches),
+             merged=merged, current_device=torch.cuda.current_device(),
+             memory_allocated=np.asarray(mem, np.int64),
+             **{f"map.{k}": v for k, v in map_state.to_numpy(m).items()})
+
+
+def job_build_kernels(rank, world, tmp, args):
+    """`kernels.build_all(["chol_solve"])` into the shared
+    args["build_dir"], with the compiler at args["bin"] first on PATH,
+    every rank starting at the time args["start"]; writes whether this
+    rank compiled and the size of the library it then finds to
+    `built_<rank>.json`."""
+    from pathlib import Path
+    from eao_fusion_tpu_torch import kernels
+    os.environ["PATH"] = args["bin"] + os.pathsep + os.environ["PATH"]
+    kernels.BUILD_DIR = Path(args["build_dir"])
+    while time.time() < args["start"]:
+        time.sleep(0.005)
+    built = kernels.build_all(["chol_solve"])
+    with open(os.path.join(tmp, f"built_{rank}.json"), "w") as f:
+        json.dump({"compiled": "chol_solve" in built,
+                   "size": kernels.lib_path("chol_solve").stat().st_size},
+                  f)
