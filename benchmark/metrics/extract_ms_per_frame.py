@@ -1,0 +1,10 @@
+"""Feature extraction's host ms a frame (`frontend.extract`:
+`extractor.extract_features`, the pyramid, FAST, orientation and BRIEF),
+from the port's own spans in the traced run's chunks after its traced
+span (`benchmark/harness/spans.py`)."""
+
+from benchmark.harness import spans
+
+
+def read(run: dict):
+    return spans.stage_ms(run, "frontend.extract")

@@ -17,7 +17,12 @@ Usage:
       [--no-objects] [--no-loop] [--checkpoint out.npz] [--resume in.npz]
       [--localization-only] [--imu accelerometer.txt] [--chunk N]
       [--online] [--max-frames N] [--mode Full|NA|IoU|NP]
-      [--device cuda|cpu]
+      [--device cuda|cpu] [--spans trace.json]
+
+`--spans FILE` records the port's host spans and host syncs over the run
+(`utils/profiling.py`) and writes them at its end as a Chrome trace
+(chrome://tracing, Perfetto: unix-µs timestamps, one track a thread),
+then prints each span's totals.
 """
 
 from __future__ import annotations
@@ -86,6 +91,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs "
                          "the kernels' plain PyTorch versions)")
+    ap.add_argument("--spans", default=None,
+                    help="record the host spans and syncs and write them "
+                         "to this file as a Chrome trace")
     return ap.parse_args(argv)
 
 
@@ -114,6 +122,7 @@ def main(argv=None):
     from eao_fusion_tpu_torch.ops import lie
     from eao_fusion_tpu_torch.pipeline import steady
     from eao_fusion_tpu_torch.pipeline.system import System
+    from eao_fusion_tpu_torch.utils import profiling
 
     device = resolve_device(None if args.device == "cuda" else args.device)
     sensor = "mono" if args.mono else ("stereo" if args.stereo else "rgbd")
@@ -160,6 +169,8 @@ def main(argv=None):
         gt_ts, gt_twc = tum.read_groundtruth(args.gt)
 
     s = System(cfg, device=device)
+    if args.spans:
+        profiling.enable()
     if args.resume:
         from eao_fusion_tpu_torch.io import checkpoint
         checkpoint.load_state(args.resume, s)
@@ -250,6 +261,13 @@ def main(argv=None):
         if pending:
             run_chunk(pending)
     t_end = time.perf_counter()
+    if args.spans:
+        profiling.disable()
+        rec = profiling.drain()
+        with open(args.spans, "w") as fh:
+            json.dump(profiling.chrome_trace(rec, pid=os.getpid()), fh)
+        print(f"wrote {args.spans} ({len(rec['spans'])} spans)\n"
+              + profiling.report(rec), flush=True)
     n_run = len(s.trajectory) - n_restored
     timing = {"frames": n_run, "seconds": t_end - t0,
               "fps_after_first": ((n_run - 2) / (t_end - t_first)

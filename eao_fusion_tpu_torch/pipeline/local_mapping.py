@@ -25,6 +25,7 @@ from eao_fusion_tpu_torch.ops.scatter import put_last
 from eao_fusion_tpu_torch.ops.topk import top_k_stable
 from eao_fusion_tpu_torch.solvers import ba, triangulation
 from eao_fusion_tpu_torch.types import FrameFeatures
+from eao_fusion_tpu_torch.utils import profiling
 
 
 def _neighbour_row(covis: torch.Tensor, m: MapState, kf_slot: int,
@@ -262,90 +263,97 @@ def _select_window(m: MapState, kf_slot: int, n_local: int, n_fixed: int
 
 def local_mapping_step(m: MapState, kf_slot: int, *,
                        cfg: SystemConfig) -> MapState:
+    """Point culling, fusion with the covisible neighbours, local BA on the
+    window and the write-back, for the new keyframe `kf_slot`."""
     cam5 = (cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy,
             cfg.camera.bf)
-    m = cull_points(m, kf_slot, min_obs=3 if cfg.sensor == "mono" else 2)
-    m = fuse_neighbors(m, kf_slot, cfg=cfg)
+    with profiling.span("mapping.cull_points"):
+        m = cull_points(m, kf_slot, min_obs=3 if cfg.sensor == "mono" else 2)
+    with profiling.span("mapping.fuse"):
+        m = fuse_neighbors(m, kf_slot, cfg=cfg)
 
-    n_fixed = 8
-    n_local = cfg.capacity.max_local_ba_kfs - n_fixed
-    kf_idx, sel_valid, fixed, local_pts = _select_window(
-        m, kf_slot, n_local, n_fixed)
+    with profiling.span("mapping.window"):
+        n_fixed = 8
+        n_local = cfg.capacity.max_local_ba_kfs - n_fixed
+        kf_idx, sel_valid, fixed, local_pts = _select_window(
+            m, kf_slot, n_local, n_fixed)
 
-    # window compaction: a compact [Pw] point table and [E] edge list
-    N = m.kf_pt_idx.shape[1]
-    C = kf_idx.shape[0]
-    P = m.max_pt
-    Pw = min(cfg.capacity.max_local_ba_points, P)
-    E = min(cfg.capacity.max_local_ba_obs, C * N)
-    dev = kf_idx.device
-    sel = m.pt_valid & local_pts
-    widx = torch.argsort((~sel).to(torch.int8), stable=True)[:Pw]
-    wvalid = sel[widx]
-    lut = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    lut[widx[wvalid]] = torch.arange(Pw, dtype=torch.int32,
-                                     device=dev)[wvalid]
+        # window compaction: a compact [Pw] point table and [E] edge list
+        N = m.kf_pt_idx.shape[1]
+        C = kf_idx.shape[0]
+        P = m.max_pt
+        Pw = min(cfg.capacity.max_local_ba_points, P)
+        E = min(cfg.capacity.max_local_ba_obs, C * N)
+        dev = kf_idx.device
+        sel = m.pt_valid & local_pts
+        widx = torch.argsort((~sel).to(torch.int8), stable=True)[:Pw]
+        wvalid = sel[widx]
+        lut = torch.full((P,), -1, dtype=torch.int32, device=dev)
+        lut[widx[wvalid]] = torch.arange(Pw, dtype=torch.int32,
+                                         device=dev)[wvalid]
 
-    obs_pt_dense = m.kf_pt_idx[kf_idx]                        # [C, N]
-    pid_w = lut[torch.clamp(obs_pt_dense.long(), min=0)]
-    obs_ok = (m.kf_kp_valid[kf_idx] & (obs_pt_dense >= 0) & (pid_w >= 0)
-              & (sel_valid & m.kf_valid[kf_idx])[:, None])
-    flat_ok = obs_ok.reshape(-1)
-    eidx = torch.argsort((~flat_ok).to(torch.int8), stable=True)[:E]
-    e_ok = flat_ok[eidx]
-    e_cam = (eidx // N).to(torch.int32)
-    e_slot = (eidx % N)
-    lvl = m.kf_kp_level[kf_idx].reshape(-1)[eidx].float()
-    # freeze under-constrained window cameras, counting the edges the
-    # solver gets: the [E] cap keeps edges in window order, so it can leave
-    # a late camera with none, held by its plane factors alone (a singular
-    # block; local BA then throws that keyframe metres, or to 1e11 m, at the
-    # production tables). The JAX package counts before the cap; below the
-    # cap the two counts are the same.
-    starved = (torch.bincount(e_cam[e_ok].long(), minlength=C)
-               < cfg.solver.min_cam_obs)
-    prob = ba.BACooProblem(
-        cam_pose=m.kf_pose[kf_idx],
-        cam_valid=sel_valid & m.kf_valid[kf_idx],
-        cam_fixed=fixed | starved,
-        pt_xyz=m.pt_xyz[widx],
-        pt_valid=wvalid,
-        obs_cam=e_cam,
-        obs_pt=torch.where(e_ok, pid_w.reshape(-1)[eidx], -1),
-        obs_uv=m.kf_kp_uv[kf_idx].reshape(-1, 2)[eidx],
-        obs_ur=m.kf_kp_uright[kf_idx].reshape(-1)[eidx],
-        obs_inv_sigma2=cfg.orb.scale_factor ** (-2.0 * lvl),
-        obs_valid=e_ok,
-    )
-    plane_block = None
-    if cfg.use_planes:
-        # fixed-plane factors of the window keyframes' plane observations
-        pl_idx = m.kf_pl_idx[kf_idx]                          # [C, F]
-        pl_c = torch.clamp(pl_idx.long(), min=0)
-        pl_ok = (pl_idx >= 0) & m.pl_valid[pl_c] & sel_valid[:, None]
-        plane_block = (m.pl_coeff[pl_c], m.kf_pl_coeff[kf_idx], pl_ok)
-    res = ba.bundle_adjust_coo(prob, plane_block, cam=cam5, cfg=cfg.solver,
-                               n_iters1=cfg.solver.local_ba_iters_first,
-                               n_iters2=cfg.solver.local_ba_iters_second,
-                               ftol=cfg.solver.local_ba_ftol)
+        obs_pt_dense = m.kf_pt_idx[kf_idx]                        # [C, N]
+        pid_w = lut[torch.clamp(obs_pt_dense.long(), min=0)]
+        obs_ok = (m.kf_kp_valid[kf_idx] & (obs_pt_dense >= 0) & (pid_w >= 0)
+                  & (sel_valid & m.kf_valid[kf_idx])[:, None])
+        flat_ok = obs_ok.reshape(-1)
+        eidx = torch.argsort((~flat_ok).to(torch.int8), stable=True)[:E]
+        e_ok = flat_ok[eidx]
+        e_cam = (eidx // N).to(torch.int32)
+        e_slot = (eidx % N)
+        lvl = m.kf_kp_level[kf_idx].reshape(-1)[eidx].float()
+        # freeze under-constrained window cameras, counting the edges the
+        # solver gets: the [E] cap keeps edges in window order, so it can
+        # leave a late camera with none, held by its plane factors alone (a
+        # singular block; local BA then throws that keyframe metres, or to
+        # 1e11 m, at the production tables). The JAX package counts before
+        # the cap; below the cap the two counts are the same.
+        starved = (torch.bincount(e_cam[e_ok].long(), minlength=C)
+                   < cfg.solver.min_cam_obs)
+        prob = ba.BACooProblem(
+            cam_pose=m.kf_pose[kf_idx],
+            cam_valid=sel_valid & m.kf_valid[kf_idx],
+            cam_fixed=fixed | starved,
+            pt_xyz=m.pt_xyz[widx],
+            pt_valid=wvalid,
+            obs_cam=e_cam,
+            obs_pt=torch.where(e_ok, pid_w.reshape(-1)[eidx], -1),
+            obs_uv=m.kf_kp_uv[kf_idx].reshape(-1, 2)[eidx],
+            obs_ur=m.kf_kp_uright[kf_idx].reshape(-1)[eidx],
+            obs_inv_sigma2=cfg.orb.scale_factor ** (-2.0 * lvl),
+            obs_valid=e_ok,
+        )
+        plane_block = None
+        if cfg.use_planes:
+            # fixed-plane factors of the window keyframes' plane observations
+            pl_idx = m.kf_pl_idx[kf_idx]                          # [C, F]
+            pl_c = torch.clamp(pl_idx.long(), min=0)
+            pl_ok = (pl_idx >= 0) & m.pl_valid[pl_c] & sel_valid[:, None]
+            plane_block = (m.pl_coeff[pl_c], m.kf_pl_coeff[kf_idx], pl_ok)
+    with profiling.span("mapping.local_ba"):
+        res = ba.bundle_adjust_coo(prob, plane_block, cam=cam5, cfg=cfg.solver,
+                                   n_iters1=cfg.solver.local_ba_iters_first,
+                                   n_iters2=cfg.solver.local_ba_iters_second,
+                                   ftol=cfg.solver.local_ba_ftol)
 
-    # write optimized poses / points back (updated, valid, non-fixed slots)
-    upd = sel_valid & (~fixed)
-    m = m._replace(
-        kf_pose=set_rows(m.kf_pose, kf_idx[upd], res.cam_pose[upd]),
-        pt_xyz=set_rows(m.pt_xyz, widx[wvalid], res.pt_xyz[wvalid]))
+    with profiling.span("mapping.writeback"):
+        # write optimized poses / points back (updated, valid, non-fixed slots)
+        upd = sel_valid & (~fixed)
+        m = m._replace(
+            kf_pose=set_rows(m.kf_pose, kf_idx[upd], res.cam_pose[upd]),
+            pt_xyz=set_rows(m.pt_xyz, widx[wvalid], res.pt_xyz[wvalid]))
 
-    # remove outlier observations from the window keyframes
-    clear = e_ok & (~res.obs_inlier)
-    m = m._replace(kf_pt_idx=set_rows(
-        m.kf_pt_idx, (kf_idx[e_cam.long()][clear], e_slot[clear]), -1))
+        # remove outlier observations from the window keyframes
+        clear = e_ok & (~res.obs_inlier)
+        m = m._replace(kf_pt_idx=set_rows(
+            m.kf_pt_idx, (kf_idx[e_cam.long()][clear], e_slot[clear]), -1))
 
-    m = refresh_obs_rows(m, kf_idx)
-    m = cull_keyframes(m, kf_slot)
-    m = update_point_stats(m)
-    # the full-table descriptor vote is amortized: every 4th keyframe
-    if kf_slot % 4 == 0:
-        m = refresh_point_descriptors(m)
+        m = refresh_obs_rows(m, kf_idx)
+        m = cull_keyframes(m, kf_slot)
+        m = update_point_stats(m)
+        # the full-table descriptor vote is amortized: every 4th keyframe
+        if kf_slot % 4 == 0:
+            m = refresh_point_descriptors(m)
     return m
 
 

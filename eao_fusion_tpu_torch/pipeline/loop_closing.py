@@ -44,6 +44,7 @@ handle's event, reads the statistics once and gates each keyframe as
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import List, Optional, Set, Tuple
@@ -62,6 +63,7 @@ from eao_fusion_tpu_torch.parallel import dist_ba, multihost
 from eao_fusion_tpu_torch.parallel import mesh as pmesh
 from eao_fusion_tpu_torch.solvers import ba, pose_graph
 from eao_fusion_tpu_torch.types import FrameFeatures
+from eao_fusion_tpu_torch.utils import profiling
 
 N_PAIR_PAD = 512     # the Sim3 pair table: the best matches, masked
 DETECT_BATCH = 64    # keyframe slots per batched detection
@@ -136,10 +138,17 @@ class LoopCloser:
         self._gba_pt_map = None
         self._detect_stream = None    # the batched detection's CUDA stream
 
-    def _tally(self, name: str, t0: float) -> None:
+    @contextlib.contextmanager
+    def _timed(self, name: str, n: int = 1, span: Optional[str] = None):
+        """Time the block as span `loop.<name>` (or `span`), and add its
+        host seconds and `n` to stats["t_<name>"] and stats["n_<name>"]
+        when it ends without raising."""
+        t0 = time.perf_counter()
+        with profiling.span(span or "loop." + name):
+            yield
         self.stats["t_" + name] = (self.stats.get("t_" + name, 0.0)
                                    + time.perf_counter() - t0)
-        self.stats["n_" + name] = self.stats.get("n_" + name, 0) + 1
+        self.stats["n_" + name] = self.stats.get("n_" + name, 0) + n
 
     # ------------------------------------------------------------ remap
     def apply_kf_remap(self, remap: np.ndarray) -> None:
@@ -718,21 +727,20 @@ class LoopCloser:
 
         def work():
             try:
-                t0 = time.perf_counter()
-                done = None
-                if cuda:
-                    # the thread starts on card 0: enter the System's card
-                    with torch.cuda.device(self.device), \
-                            torch.cuda.stream(stream):
-                        stream.wait_event(ready)
+                with self._timed("gba"):
+                    done = None
+                    if cuda:
+                        # the thread starts on card 0: enter the System's card
+                        with torch.cuda.device(self.device), \
+                                torch.cuda.stream(stream):
+                            stream.wait_event(ready)
+                            res = self._run_gba_stages(prob, plane_free, abort)
+                            done = torch.cuda.Event()
+                            done.record(stream)
+                        # the inputs may be freed once this thread ends
+                        done.synchronize()
+                    else:
                         res = self._run_gba_stages(prob, plane_free, abort)
-                        done = torch.cuda.Event()
-                        done.record(stream)
-                    # the inputs may be freed once this thread ends
-                    done.synchronize()
-                else:
-                    res = self._run_gba_stages(prob, plane_free, abort)
-                self._tally("gba", t0)
                 if res is not None and not abort.is_set():
                     self._gba_out = (res, done)
             except BaseException as e:          # raised again by poll_gba
@@ -872,31 +880,29 @@ class LoopCloser:
         `harvest_detect`."""
         slots = [int(x) for x in slots]
         assert 0 < len(slots) <= DETECT_BATCH
-        t0 = time.perf_counter()
-        m = refresh_obs_ind(m)
-        for slot in slots:
-            self.add_keyframe_bow(m, slot)
-        # the inputs as they are now: later writes to the live bow table
-        # cannot reach the detection stream's reads
-        obs, kf_valid, bow = m.obs_ind, m.kf_valid, self.bow.clone()
-        done = None
-        if self.device.type == "cuda":
-            main = torch.cuda.current_stream(self.device)
-            if self._detect_stream is None:
-                self._detect_stream = torch.cuda.Stream(self.device)
-            side = self._detect_stream
-            side.wait_stream(main)
-            for t in (obs, kf_valid, bow):
-                t.record_stream(side)     # freed only once side is done
-            with torch.cuda.stream(side):
+        with self._timed("detect", n=len(slots),
+                         span="loop.dispatch_detect"):
+            m = refresh_obs_ind(m)
+            for slot in slots:
+                self.add_keyframe_bow(m, slot)
+            # the inputs as they are now: later writes to the live bow table
+            # cannot reach the detection stream's reads
+            obs, kf_valid, bow = m.obs_ind, m.kf_valid, self.bow.clone()
+            done = None
+            if self.device.type == "cuda":
+                main = torch.cuda.current_stream(self.device)
+                if self._detect_stream is None:
+                    self._detect_stream = torch.cuda.Stream(self.device)
+                side = self._detect_stream
+                side.wait_stream(main)
+                for t in (obs, kf_valid, bow):
+                    t.record_stream(side)     # freed only once side is done
+                with torch.cuda.stream(side):
+                    scores, covis = _batch_scores(obs, kf_valid, bow, slots)
+                    done = torch.cuda.Event()
+                    done.record(side)
+            else:
                 scores, covis = _batch_scores(obs, kf_valid, bow, slots)
-                done = torch.cuda.Event()
-                done.record(side)
-        else:
-            scores, covis = _batch_scores(obs, kf_valid, bow, slots)
-        self.stats["t_detect"] = (self.stats.get("t_detect", 0.0)
-                                  + time.perf_counter() - t0)
-        self.stats["n_detect"] = self.stats.get("n_detect", 0) + len(slots)
         return m, {"slots": slots, "scores": scores, "covis": covis,
                    "done": done}
 
@@ -930,14 +936,12 @@ class LoopCloser:
             cand = self._detect_from_stats(slot, scores[i], covis, kf_valid)
             if cand < 0:
                 continue
-            t0 = time.perf_counter()
-            g = self.compute_sim3(m, slot, cand)
-            self._tally("sim3", t0)
+            with self._timed("sim3"):
+                g = self.compute_sim3(m, slot, cand)
             if g is None:
                 continue
-            t0 = time.perf_counter()
-            m = self.correct(m, slot, cand, g)
-            self._tally("correct", t0)
+            with self._timed("correct"):
+                m = self.correct(m, slot, cand, g)
             rest = slots[i + 1:]
             if rest:
                 m, n2, last2 = self.on_keyframes(m, rest)
@@ -966,18 +970,15 @@ class LoopCloser:
                     ) -> Tuple[MapState, bool]:
         """Loop detection for a new keyframe and, on a candidate, Sim3 and
         the correction. Returns (map, closed)."""
-        t0 = time.perf_counter()
-        m, scores, covis, kf_valid = self.detect_stats(m, slot)
-        cand = self._detect_from_stats(slot, scores, covis, kf_valid)
-        self._tally("detect", t0)
+        with self._timed("detect"):
+            m, scores, covis, kf_valid = self.detect_stats(m, slot)
+            cand = self._detect_from_stats(slot, scores, covis, kf_valid)
         if cand < 0:
             return m, False
-        t0 = time.perf_counter()
-        g = self.compute_sim3(m, slot, cand)
-        self._tally("sim3", t0)
+        with self._timed("sim3"):
+            g = self.compute_sim3(m, slot, cand)
         if g is None:
             return m, False
-        t0 = time.perf_counter()
-        m = self.correct(m, slot, cand, g)
-        self._tally("correct", t0)
+        with self._timed("correct"):
+            m = self.correct(m, slot, cand, g)
         return m, True

@@ -35,6 +35,7 @@ from eao_fusion_tpu_torch.ops import planes as plane_ops
 from eao_fusion_tpu_torch.pipeline import local_mapping, tracking
 from eao_fusion_tpu_torch.types import (FramePlanes, FrameFeatures,
                                         tree_from_numpy)
+from eao_fusion_tpu_torch.utils import profiling
 
 # the per-frame diagnostics that `slam_chunk` stacks (`steady.py:161-167`)
 CHUNK_DIAG = ("n_inliers", "kf_inserted", "kf_trigger", "n_ref",
@@ -73,20 +74,24 @@ def _keyframe_branch(m: ms.MapState, ts: tracking.TrackState,
     System's keyframe path (`src/Tracking.cc:2521` and
     `LocalMapping::Run`)."""
     cam = (cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy)
-    m, slot = ms.insert_keyframe(m, feats, ts.pose, fid, timestamp, ts.kp_pt,
-                                 by_obj=by_obj)
-    m = ms.create_points_from_depth(m, slot, feats, ts.pose, ts.kp_pt,
-                                    float(cfg.camera.depth_threshold), cam,
-                                    fid, scale_factor=cfg.orb.scale_factor,
-                                    n_levels=cfg.orb.n_levels)
-    dev = ts.pose.device
-    m = ms.refresh_obs_rows(m, torch.tensor([slot], device=dev))
+    with profiling.span("mapping.insert"):
+        m, slot = ms.insert_keyframe(m, feats, ts.pose, fid, timestamp,
+                                     ts.kp_pt, by_obj=by_obj)
+    with profiling.span("mapping.points"):
+        m = ms.create_points_from_depth(
+            m, slot, feats, ts.pose, ts.kp_pt,
+            float(cfg.camera.depth_threshold), cam, fid,
+            scale_factor=cfg.orb.scale_factor, n_levels=cfg.orb.n_levels)
+        dev = ts.pose.device
+        m = ms.refresh_obs_rows(m, torch.tensor([slot], device=dev))
     if fp is not None:
-        assoc = plane_map.associate_planes(m, fp, ts.pose, cfg=cfg)
-        m, plane_ids = plane_map.update_plane_map(m, fp, assoc, ts.pose,
-                                                  slot, cfg=cfg)
-        m = plane_map.record_kf_plane_obs(m, slot, fp, plane_ids)
-    m = local_mapping.local_mapping_step(m, slot, cfg=cfg)
+        with profiling.span("mapping.plane_map"):
+            assoc = plane_map.associate_planes(m, fp, ts.pose, cfg=cfg)
+            m, plane_ids = plane_map.update_plane_map(m, fp, assoc, ts.pose,
+                                                      slot, cfg=cfg)
+            m = plane_map.record_kf_plane_obs(m, slot, fp, plane_ids)
+    with profiling.span("mapping.local"):
+        m = local_mapping.local_mapping_step(m, slot, cfg=cfg)
     ts = ts._replace(kp_pt=m.kf_pt_idx[slot],
                      last_kf_frame_id=tracking._i32(fid, dev),
                      ref_kf=tracking._i32(slot, dev))
@@ -107,53 +112,67 @@ def slam_step(st: SteadyState, gray: torch.Tensor, depth: torch.Tensor,
     lane reads its whole point table, and the keyframe branch runs on its
     whole map."""
     m, ts, objs, last_fo, fid, gen = st
-    feats = extractor.extract_features(gray, depth, orb_cfg=cfg.orb,
-                                       cam_cfg=cfg.camera)
-    fp = (plane_ops.segment_planes(depth, cam=cfg.camera, cfg=cfg.planes)
-          if cfg.use_planes else None)
+    with profiling.span("frontend.extract"):
+        feats = extractor.extract_features(gray, depth, orb_cfg=cfg.orb,
+                                           cam_cfg=cfg.camera)
+    fp = None
+    if cfg.use_planes:
+        with profiling.span("frontend.planes"):
+            fp = plane_ops.segment_planes(depth, cam=cfg.camera,
+                                          cfg=cfg.planes)
 
-    m, ts, diag = tracking.track_frame(m, ts, feats, fid, fp, cfg=cfg,
-                                       maps=maps)
+    with profiling.span("tracking.track"):
+        m, ts, diag = tracking.track_frame(m, ts, feats, fid, fp, cfg=cfg,
+                                           maps=maps)
 
     # ---- object lane (per frame) ----
-    new_obj = torch.zeros((), dtype=torch.bool, device=ts.pose.device)
-    if cfg.use_objects:
-        pt_xyz, pt_valid = maps.whole_points(m)
-        fo = om.build_frame_objects(boxes, feats, ts.kp_pt, pt_xyz,
-                                    pt_valid, ts.pose, cfg=cfg)
-        fo = om.merge_frame_objects(fo, last_fo, pt_valid, cfg=cfg)
-        assoc = association.ensemble_associate(objs, fo, pt_xyz, ts.pose,
-                                               fid, cfg=cfg)
-        prev_next_obj = objs.next_obj
-        objs = obj_update.object_update(objs, fo, assoc, pt_xyz, ts.pose,
-                                        fid, gen, cfg=cfg)
-        new_obj = objs.next_obj > prev_next_obj
-        last_fo = fo
+    with profiling.span("objects.lane"):
+        new_obj = torch.zeros((), dtype=torch.bool, device=ts.pose.device)
+        if cfg.use_objects:
+            pt_xyz, pt_valid = maps.whole_points(m)
+            with profiling.span("objects.build"):
+                fo = om.build_frame_objects(boxes, feats, ts.kp_pt, pt_xyz,
+                                            pt_valid, ts.pose, cfg=cfg)
+            with profiling.span("objects.merge"):
+                fo = om.merge_frame_objects(fo, last_fo, pt_valid, cfg=cfg)
+            with profiling.span("objects.associate"):
+                assoc = association.ensemble_associate(objs, fo, pt_xyz,
+                                                       ts.pose, fid, cfg=cfg)
+            prev_next_obj = objs.next_obj
+            with profiling.span("objects.update"):
+                objs = obj_update.object_update(objs, fo, assoc, pt_xyz,
+                                                ts.pose, fid, gen, cfg=cfg)
+            new_obj = objs.next_obj > prev_next_obj
+            last_fo = fo
 
     # ---- keyframe branch: one read of what the host gates on ----
-    need_kf, status, made, next_kf = torch.stack([
-        diag["need_kf"].long(), ts.status.long(), new_obj.long(),
-        m.next_kf.long()]).tolist()
-    ok = status == tracking.STATUS_OK
-    by_obj = False
-    if kf_every:
-        need = fid % kf_every == 0 and ok
-    else:
-        need_classic = bool(need_kf) and ok
-        # a newly created map object also triggers a keyframe (the
-        # reference's NeedNewKeyFrame returns 2 on AppearNewObject,
-        # `src/Tracking.cc:2390-2462`); such keyframes carry the
-        # `kf_by_obj` culling exemption
-        need_obj = bool(made) and ok
-        need = need_classic or need_obj
-        by_obj = need_obj and not need_classic
-    need = need and next_kf < maps.n_keyframes(m)
+    with profiling.span("steady.gate"):
+        need_kf, status, made, next_kf = torch.stack([
+            diag["need_kf"].long(), ts.status.long(), new_obj.long(),
+            m.next_kf.long()]).tolist()
+        ok = status == tracking.STATUS_OK
+        by_obj = False
+        if kf_every:
+            need = fid % kf_every == 0 and ok
+        else:
+            need_classic = bool(need_kf) and ok
+            # a newly created map object also triggers a keyframe (the
+            # reference's NeedNewKeyFrame returns 2 on AppearNewObject,
+            # `src/Tracking.cc:2390-2462`); such keyframes carry the
+            # `kf_by_obj` culling exemption
+            need_obj = bool(made) and ok
+            need = need_classic or need_obj
+            by_obj = need_obj and not need_classic
+        need = need and next_kf < maps.n_keyframes(m)
     if need:
-        m, ts = _keyframe_branch(maps.gather(m), ts, feats, fp, fid,
-                                 timestamp, cfg, by_obj=by_obj)
-        if cfg.use_objects:
-            objs = obj_merge.merge_and_overlap(objs, m.pt_xyz, gen, cfg=cfg)
-        m = maps.keep_rows(m)
+        with profiling.span("mapping.kf_branch"):
+            m, ts = _keyframe_branch(maps.gather(m), ts, feats, fp, fid,
+                                     timestamp, cfg, by_obj=by_obj)
+            if cfg.use_objects:
+                with profiling.span("objects.merge_overlap"):
+                    objs = obj_merge.merge_and_overlap(objs, m.pt_xyz, gen,
+                                                       cfg=cfg)
+            m = maps.keep_rows(m)
 
     diag = dict(diag)
     diag["kf_inserted"] = need
@@ -169,18 +188,22 @@ def slam_chunk(st: SteadyState, grays: torch.Tensor, depths: torch.Tensor,
     """`slam_step` over a [T, H, W] chunk of frames (`boxes` [T, B, 6],
     `timestamps` [T]). Returns the carry and the stacked per-frame
     diagnostics of `CHUNK_DIAG` (`pose` is the pose after each frame)."""
-    if isinstance(timestamps, torch.Tensor):
-        timestamps = timestamps.tolist()
-    per = {k: [] for k in CHUNK_DIAG}
-    for t in range(grays.shape[0]):
-        st, diag = slam_step(st, grays[t], depths[t], boxes[t],
-                             float(timestamps[t]), cfg=cfg,
-                             kf_every=kf_every, maps=maps)
-        for k in CHUNK_DIAG[:-1]:
-            per[k].append(diag[k])
-        per["pose"].append(st.ts.pose)
-    out = {k: (torch.tensor(v, device=grays.device) if k == "kf_inserted"
-               else torch.stack(v)) for k, v in per.items()}
+    profiling.follow_profiler()
+    with profiling.span("steady.slam_chunk", chunk=st.frame_id):
+        if isinstance(timestamps, torch.Tensor):
+            timestamps = timestamps.tolist()
+        per = {k: [] for k in CHUNK_DIAG}
+        for t in range(grays.shape[0]):
+            with profiling.span("steady.step", frame=st.frame_id):
+                st, diag = slam_step(st, grays[t], depths[t], boxes[t],
+                                     float(timestamps[t]), cfg=cfg,
+                                     kf_every=kf_every, maps=maps)
+            for k in CHUNK_DIAG[:-1]:
+                per[k].append(diag[k])
+            per["pose"].append(st.ts.pose)
+        out = {k: (torch.tensor(v, device=grays.device)
+                   if k == "kf_inserted" else torch.stack(v))
+               for k, v in per.items()}
     return st, out
 
 

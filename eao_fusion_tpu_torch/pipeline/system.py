@@ -45,6 +45,7 @@ from eao_fusion_tpu_torch.pipeline import (local_mapping, loop_closing,
                                            relocalization, steady, tracking)
 from eao_fusion_tpu_torch.pipeline.loop_closing import LoopCloser
 from eao_fusion_tpu_torch.types import FrameFeatures, FramePlanes
+from eao_fusion_tpu_torch.utils import profiling
 
 
 def insert_keyframe_rgbd(m: ms.MapState, feats: FrameFeatures,
@@ -571,12 +572,17 @@ class System:
         (slots from `kf_before` on), after compaction so that the slot ids
         in the handle stay current; relocalize on the last frame's
         features if the chunk ended LOST. Returns the refreshed carry."""
+        with profiling.span("system.epilogue", chunk=self.frame_id):
+            return self._chunk_epilogue(st, kf_before)
+
+    def _chunk_epilogue(self, st, kf_before: int):
         self.map, self.track, self.objects = st.m, st.ts, st.objs
         # one device -> host read for every scalar the host gates on
         K = self.map.max_kf
-        vals = torch.cat([torch.stack([
-            st.m.next_kf, st.m.next_pt, st.ts.status]).long(),
-            st.m.kf_valid.long()]).cpu().numpy()
+        with profiling.span("epilogue.read"):
+            vals = torch.cat([torch.stack([
+                st.m.next_kf, st.m.next_pt, st.ts.status]).long(),
+                st.m.kf_valid.long()]).cpu().numpy()
         next_kf, next_pt, status = (int(v) for v in vals[:3])
         kf_valid_h = vals[3:3 + K] > 0
         self.frame_id = st.frame_id
@@ -584,13 +590,17 @@ class System:
         lc = self.loop_closer
         if lc is not None and self._pending_detect is not None:
             pend, self._pending_detect = self._pending_detect, None
-            self._harvest(next_kf - 1, pend, kf_valid=kf_valid_h)
-        self._poll_gba()
+            with profiling.span("epilogue.harvest"):
+                self._harvest(next_kf - 1, pend, kf_valid=kf_valid_h)
+        with profiling.span("epilogue.gba_poll"):
+            self._poll_gba()
         # the triggers read the values above (stale only after a closure,
         # whose fusion can only shrink the tables)
-        pts_compacted = self._maybe_compact_points(next_pt=next_pt)
-        kfs_compacted = self._maybe_compact_keyframes(next_kf=next_kf,
-                                                      kf_valid=kf_valid_h)
+        with profiling.span("epilogue.compact_points"):
+            pts_compacted = self._maybe_compact_points(next_pt=next_pt)
+        with profiling.span("epilogue.compact_kfs"):
+            kfs_compacted = self._maybe_compact_keyframes(
+                next_kf=next_kf, kf_valid=kf_valid_h)
         self.next_kf_hint = (int(self.map.next_kf) if kfs_compacted
                              else next_kf)
         if lc is not None and kf_before < next_kf:
@@ -601,12 +611,14 @@ class System:
                              if remap[k] >= 0]
             if len(new_slots) > loop_closing.DETECT_BATCH:
                 # an oversized chunk takes the synchronous batch path
-                self._harvest(self.next_kf_hint - 1, slots=new_slots)
+                with profiling.span("epilogue.harvest"):
+                    self._harvest(self.next_kf_hint - 1, slots=new_slots)
             elif new_slots:
                 self.map, self._pending_detect = lc.dispatch_detect(
                     self.map, new_slots)
         if status == tracking.STATUS_LOST and lc is not None:
-            self._relocalize(self.track.last_feats)
+            with profiling.span("epilogue.relocalize"):
+                self._relocalize(self.track.last_feats)
 
         last_fo = st.last_fo
         if pts_compacted and self.cfg.use_objects:
@@ -621,18 +633,19 @@ class System:
         before its `chunk_epilogue`: each pose relative to the carry's
         reference keyframe at the chunk's end, so that `trajectory_tcw(
         corrected=True)` follows later corrections of that keyframe."""
-        poses = diag["pose"].cpu()
-        ref = int(st.ts.ref_kf)
-        t_rw_inv = lie.se3_inverse(st.m.kf_pose[ref].cpu())
-        t_cr = lie.se3_compose(poses, t_rw_inv[None]).numpy()
-        cols = {k: diag[k].cpu().tolist() for k in ("n_inliers",
-                                                    "kf_inserted",
-                                                    "kf_trigger")}
-        for j, t in enumerate(timestamps):
-            self.trajectory.append(poses[j].numpy())
-            self.timestamps.append(float(t))
-            self._traj_refs.append((ref, t_cr[j]))
-            self.diags.append({k: int(v[j]) for k, v in cols.items()})
+        with profiling.span("system.record_chunk", chunk=self.frame_id):
+            poses = diag["pose"].cpu()
+            ref = int(st.ts.ref_kf)
+            t_rw_inv = lie.se3_inverse(st.m.kf_pose[ref].cpu())
+            t_cr = lie.se3_compose(poses, t_rw_inv[None]).numpy()
+            cols = {k: diag[k].cpu().tolist() for k in ("n_inliers",
+                                                        "kf_inserted",
+                                                        "kf_trigger")}
+            for j, t in enumerate(timestamps):
+                self.trajectory.append(poses[j].numpy())
+                self.timestamps.append(float(t))
+                self._traj_refs.append((ref, t_cr[j]))
+                self.diags.append({k: int(v[j]) for k, v in cols.items()})
 
     def _on_keyframe(self, slot: int) -> None:
         """Keyframe-rate mapping: a finished GBA merged first; monocular
@@ -644,8 +657,9 @@ class System:
             self.map = local_mapping.create_points_mono(self.map, slot,
                                                         cfg=self.cfg)
         if self.n_keyframes >= 3:
-            self.map = local_mapping.local_mapping_step(self.map, slot,
-                                                        cfg=self.cfg)
+            with profiling.span("mapping.local"):
+                self.map = local_mapping.local_mapping_step(self.map, slot,
+                                                            cfg=self.cfg)
             # BA may have removed some associations as outliers
             self.track = self.track._replace(kp_pt=self.map.kf_pt_idx[slot])
         if self.cfg.use_objects:

@@ -28,6 +28,7 @@ from eao_fusion_tpu_torch.ops import lie
 from eao_fusion_tpu_torch.solvers import pose_opt
 from eao_fusion_tpu_torch.types import (FramePlanes, FrameFeatures,
                                         to_tensor, tree_from_numpy)
+from eao_fusion_tpu_torch.utils import profiling
 
 STATUS_UNINIT = 0
 STATUS_OK = 1
@@ -215,86 +216,95 @@ def track_frame(m: MapState, ts: TrackState, feats: FrameFeatures,
                            last_pt[torch.clamp(res.target_idx.long(), 0,
                                                n_kp - 1)], -1)
 
-    kp_pt_mm = run_mm(1.0)
-    n_mm = int((kp_pt_mm >= 0).sum())
-    # if < 20 matches, retry with a doubled window (host branch)
-    if n_mm < cfg.tracking.min_matches_track:
-        kp_pt_mm = run_mm(2.0)
-    n_mm2 = int((kp_pt_mm >= 0).sum())
+    with profiling.span("tracking.motion_match"):
+        kp_pt_mm = run_mm(1.0)
+        n_mm = int((kp_pt_mm >= 0).sum())
+        # if < 20 matches, retry with a doubled window (host branch)
+        if n_mm < cfg.tracking.min_matches_track:
+            kp_pt_mm = run_mm(2.0)
+        n_mm2 = int((kp_pt_mm >= 0).sum())
 
     # TrackReferenceKeyFrame fallback: descriptor matching against the
     # reference keyframe, seeded from the last pose (host branch)
     use_ref = n_mm2 < cfg.tracking.min_matches_track
     if use_ref:
-        ref = min(max(int(ts.ref_kf), 0), K - 1)
-        ref_pt, ref_kp_valid, ref_desc, ref_angle = maps.kf_rows(
-            m, ref, ("kf_pt_idx", "kf_kp_valid", "kf_desc_pm1",
-                     "kf_kp_angle"))
-        va = (ref_kp_valid & (ref_pt >= 0)
-              & maps.point_rows(m, torch.clamp(ref_pt.long(), min=0))[1])
-        mm = matcher.mutual_match(
-            ref_desc, va, ref_angle,
-            feats.desc_pm1, feats.valid, feats.angle,
-            th=cfg.matcher.th_low, use_ratio=True, check_rotation=True)
-        kp_pt_mm = torch.full((n_kp,), -1, dtype=torch.int32, device=dev)
-        hit = mm.target_idx >= 0
-        kp_pt_mm[mm.target_idx[hit].long()] = ref_pt[hit]
-        pose_guess = ts.last_pose
+        with profiling.span("tracking.ref_match"):
+            ref = min(max(int(ts.ref_kf), 0), K - 1)
+            ref_pt, ref_kp_valid, ref_desc, ref_angle = maps.kf_rows(
+                m, ref, ("kf_pt_idx", "kf_kp_valid", "kf_desc_pm1",
+                         "kf_kp_angle"))
+            va = (ref_kp_valid & (ref_pt >= 0)
+                  & maps.point_rows(m, torch.clamp(ref_pt.long(), min=0))[1])
+            mm = matcher.mutual_match(
+                ref_desc, va, ref_angle,
+                feats.desc_pm1, feats.valid, feats.angle,
+                th=cfg.matcher.th_low, use_ratio=True, check_rotation=True)
+            kp_pt_mm = torch.full((n_kp,), -1, dtype=torch.int32, device=dev)
+            hit = mm.target_idx >= 0
+            kp_pt_mm[mm.target_idx[hit].long()] = ref_pt[hit]
+            pose_guess = ts.last_pose
 
     # ---- 3. first pose optimization -----------------------------------
-    obs1 = _build_pose_obs(m, feats, kp_pt_mm, s, maps)
-    r1 = pose_opt.optimize_pose(pose_guess, obs1, cam=cam5, cfg=cfg.solver)
-    kp_pt_mm = torch.where(r1.inliers & (kp_pt_mm >= 0), kp_pt_mm, -1)
+    with profiling.span("tracking.pose_solve"):
+        obs1 = _build_pose_obs(m, feats, kp_pt_mm, s, maps)
+        r1 = pose_opt.optimize_pose(pose_guess, obs1, cam=cam5,
+                                    cfg=cfg.solver)
+        kp_pt_mm = torch.where(r1.inliers & (kp_pt_mm >= 0), kp_pt_mm, -1)
 
     # ---- 4. local map -------------------------------------------------
-    Z = covisibility.observation_indicator(m)
-    seen = maps.mark(m, kp_pt_mm)
-    kf_local = maps.local_keyframes(m, Z, seen,
-                                    cfg.tracking.max_local_keyframes)
-    pt_local = maps.points_of_keyframes(Z, kf_local) & m.pt_valid
+    with profiling.span("tracking.local_map"):
+        Z = covisibility.observation_indicator(m)
+        seen = maps.mark(m, kp_pt_mm)
+        kf_local = maps.local_keyframes(m, Z, seen,
+                                        cfg.tracking.max_local_keyframes)
+        pt_local = maps.points_of_keyframes(Z, kf_local) & m.pt_valid
 
-    # frustum + view-cone gating (Frame::isInFrustum)
-    center = lie.se3_inverse(r1.pose)[4:7]
-    rel = m.pt_xyz - center
-    dist = torch.linalg.norm(rel, dim=-1)
-    view_cos = torch.sum(rel * m.pt_normal, dim=-1) / torch.clamp(dist,
-                                                                  min=1e-9)
-    in_range = (dist >= 0.8 * m.pt_min_dist) & (dist <= 1.2 * m.pt_max_dist)
-    pred_lvl = matcher.predict_scale_level(dist, m.pt_max_dist, s,
-                                           cfg.orb.n_levels)
-    cand = pt_local & in_range & (view_cos > 0.5) & (~seen)
-    _, _, in_img = matcher.project_points(r1.pose, m.pt_xyz, cam, W, H)
-    visible = (cand & in_img) | seen
-    m = m._replace(pt_visible=m.pt_visible + visible.to(torch.int32))
+        # frustum + view-cone gating (Frame::isInFrustum)
+        center = lie.se3_inverse(r1.pose)[4:7]
+        rel = m.pt_xyz - center
+        dist = torch.linalg.norm(rel, dim=-1)
+        view_cos = torch.sum(rel * m.pt_normal, dim=-1) / torch.clamp(
+            dist, min=1e-9)
+        in_range = ((dist >= 0.8 * m.pt_min_dist)
+                    & (dist <= 1.2 * m.pt_max_dist))
+        pred_lvl = matcher.predict_scale_level(dist, m.pt_max_dist, s,
+                                               cfg.orb.n_levels)
+        cand = pt_local & in_range & (view_cos > 0.5) & (~seen)
+        _, _, in_img = matcher.project_points(r1.pose, m.pt_xyz, cam, W, H)
+        visible = (cand & in_img) | seen
+        m = m._replace(pt_visible=m.pt_visible + visible.to(torch.int32))
 
-    r_base = torch.where(view_cos > 0.998, 2.5, 4.0)
-    radius_lm = r_base * s ** pred_lvl.float()
-    # only points not already matched this frame
-    res_lm = maps.match_points_to_frame(
-        m.pt_xyz, m.pt_desc_pm1, visible & ~seen,
-        torch.zeros((m.max_pt,), device=dev), pred_lvl,
-        radius_lm, pred_lvl - 1, pred_lvl,
-        feats, r1.pose, cam=cam, width=W, height=H,
-        th=cfg.matcher.th_high, nn_ratio=0.8, use_ratio=True,
-        check_rotation=False)
-    kp_pt = torch.where(kp_pt_mm >= 0, kp_pt_mm,
-                        torch.where(res_lm.target_idx >= 0,
-                                    res_lm.target_idx, -1))
+        r_base = torch.where(view_cos > 0.998, 2.5, 4.0)
+        radius_lm = r_base * s ** pred_lvl.float()
+        # only points not already matched this frame
+        res_lm = maps.match_points_to_frame(
+            m.pt_xyz, m.pt_desc_pm1, visible & ~seen,
+            torch.zeros((m.max_pt,), device=dev), pred_lvl,
+            radius_lm, pred_lvl - 1, pred_lvl,
+            feats, r1.pose, cam=cam, width=W, height=H,
+            th=cfg.matcher.th_high, nn_ratio=0.8, use_ratio=True,
+            check_rotation=False)
+        kp_pt = torch.where(kp_pt_mm >= 0, kp_pt_mm,
+                            torch.where(res_lm.target_idx >= 0,
+                                        res_lm.target_idx, -1))
 
     # ---- 4b. plane association at the first solve's pose; the measured
     # planes, sign-aligned to their landmarks, join the second solve ----
     plane_obs = plane_assoc = None
     if planes is not None:
-        plane_assoc = plane_map.associate_planes(m, planes, r1.pose, cfg=cfg)
-        plane_obs = plane_map.build_plane_obs(m, planes, plane_assoc)
-        plane_obs = plane_obs._replace(meas_c=plane_map._align_sign(
-            plane_obs.meas_c, plane_obs.plane_w, r1.pose))
+        with profiling.span("tracking.planes"):
+            plane_assoc = plane_map.associate_planes(m, planes, r1.pose,
+                                                     cfg=cfg)
+            plane_obs = plane_map.build_plane_obs(m, planes, plane_assoc)
+            plane_obs = plane_obs._replace(meas_c=plane_map._align_sign(
+                plane_obs.meas_c, plane_obs.plane_w, r1.pose))
 
     # ---- 5. second pose optimization ----------------------------------
-    obs2 = _build_pose_obs(m, feats, kp_pt, s, maps)
-    r2 = pose_opt.optimize_pose(r1.pose, obs2, plane_obs, cam=cam5,
-                                cfg=cfg.solver)
-    kp_pt = torch.where(r2.inliers & (kp_pt >= 0), kp_pt, -1)
+    with profiling.span("tracking.pose_solve"):
+        obs2 = _build_pose_obs(m, feats, kp_pt, s, maps)
+        r2 = pose_opt.optimize_pose(r1.pose, obs2, plane_obs, cam=cam5,
+                                    cfg=cfg.solver)
+        kp_pt = torch.where(r2.inliers & (kp_pt >= 0), kp_pt, -1)
     n_in = (kp_pt >= 0).sum().to(torch.int32)
 
     found = maps.mark(m, kp_pt)

@@ -42,6 +42,7 @@ from eao_fusion_tpu_torch.config import SolverConfig
 from eao_fusion_tpu_torch.ops import lie
 from eao_fusion_tpu_torch.ops.scatter import index_sum
 from eao_fusion_tpu_torch.solvers import ba_edge, chol
+from eao_fusion_tpu_torch.utils import profiling
 
 
 class BACooProblem(NamedTuple):
@@ -179,8 +180,9 @@ def _lm_phase(state, cost, step, iters: int, damping: float, ftol: float):
     c_cur = np.float32(cost(state).item())
     it, stall = 0, 0
     while it < iters and stall < 2:
-        cand = step(state, float(lam))
-        c_new = np.float32(cost(cand).item())
+        with profiling.span("solvers.lm_iter"):
+            cand = step(state, float(lam))
+            c_new = np.float32(cost(cand).item())
         accept = bool(c_new < c_cur) and bool(np.isfinite(c_new))
         if accept:
             state = cand

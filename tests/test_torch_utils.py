@@ -1,44 +1,11 @@
-"""The port's utilities: timing spans and the profiler trace
-(`utils/profiling.py`) and the offline visual artifacts (`utils/viz.py`)."""
-
-import json
+"""The port's offline visual artifacts (`utils/viz.py`); the recorder of
+`utils/profiling.py` is held by tests/test_torch_profiling.py."""
 
 import numpy as np
 import pytest
 import torch
 
-from eao_fusion_tpu_torch.utils import profiling, viz
-
-
-def test_timer_spans_add_up():
-    t = profiling.Timers()
-    for _ in range(3):
-        with t.span("a"):
-            pass
-    with t.span("b", sync=torch.zeros(2)):      # a CPU tensor: no sync
-        pass
-    assert t.count == {"a": 3, "b": 1}
-    assert all(v >= 0 for v in t.total.values())
-    rep = t.report().splitlines()
-    assert len(rep) == 2 and rep[0].split()[0] in ("a", "b")
-    assert rep[0].endswith(("x3", "x1"))
-    t.reset()
-    assert not t.total and not t.count and t.report() == ""
-
-
-def test_span_counts_a_failing_block():
-    t = profiling.Timers()
-    with pytest.raises(RuntimeError):
-        with t.span("x"):
-            raise RuntimeError("boom")
-    assert t.count["x"] == 1
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with profiling.trace(str(tmp_path / "tr")):
-        torch.ones(64).cumsum(0)
-    data = json.loads((tmp_path / "tr" / "trace.json").read_text())
-    assert any("cumsum" in e.get("name", "") for e in data["traceEvents"])
+from eao_fusion_tpu_torch.utils import viz
 
 
 class _Cam:
