@@ -1916,41 +1916,40 @@ def phase_loop_chunks():
 @contextlib.contextmanager
 def first_calls():
     """Keep clones of the inputs of the first K1 launch and of the first
-    local-BA edge binding and its first K2 call, made while the context
-    is open: {"k1": (pose0, obs, planes, cam, cfg), "edges": (x, tgt, kw),
-    "k2": (cam_pose, pt_xyz, active)}."""
+    K2 call (`ba_edge.EdgePass.full`, whichever binding makes it) made
+    while the context is open, K2's with the binding's fixed tensors as
+    the kernel reads them: {"k1": (pose0, obs, planes, cam, cfg),
+    "edges": (x, tgt, kw), "k2": (cam_pose, pt_xyz, active)}."""
     from eao_fusion_tpu_torch.solvers import ba_edge, pose_opt
 
     def clone(t):
         return type(t)(*(v.clone() if v is not None else None for v in t))
     got = {}
     k1 = pose_opt.optimize_pose_cuda
-    edge_cls = ba_edge.EdgePass
+    full = ba_edge.EdgePass.full
 
     def k1_spy(pose0, obs, plane_obs=None, *, cam, cfg):
         if "k1" not in got:
             got["k1"] = (pose0.clone(), clone(obs), plane_obs, cam, cfg)
         return k1(pose0, obs, plane_obs, cam=cam, cfg=cfg)
 
-    class EdgeSpy(edge_cls):
-        def __init__(self, x, tgt, **kw):
-            super().__init__(x, tgt, **kw)
-            if "edges" not in got:
-                got["edges"] = (clone(x), tgt.clone(), kw)
-                got["edge_pass"] = self
-
-        def full(self, cam_pose, pt_xyz, active):
-            if got.get("edge_pass") is self and "k2" not in got:
-                got["k2"] = (cam_pose.clone(), pt_xyz.clone(), active.clone())
-            return super().full(cam_pose, pt_xyz, active)
+    def full_spy(self, cam_pose, pt_xyz, active):
+        if "k2" not in got:
+            f = {k: t.clone() for k, t in self._fixed.items()}
+            got["k2"] = (cam_pose.clone(), pt_xyz.clone(), active.clone())
+            got["edges"] = (ba_edge.EdgeInputs(
+                *got["k2"][:2], f["obs_cam"], f["obs_pt"], f["obs_uv"],
+                f["obs_ur"], f["obs_is2"], f["free_cam"]), f["tgt"],
+                dict(self._kw))
+        return full(self, cam_pose, pt_xyz, active)
 
     pose_opt.optimize_pose_cuda = k1_spy
-    ba_edge.EdgePass = EdgeSpy
+    ba_edge.EdgePass.full = full_spy
     try:
         yield got
     finally:
         pose_opt.optimize_pose_cuda = k1
-        ba_edge.EdgePass = edge_cls
+        ba_edge.EdgePass.full = full
 
 
 def check_mono_kernels(got):

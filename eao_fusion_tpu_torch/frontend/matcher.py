@@ -50,10 +50,12 @@ def resolve_duplicates(best_kp: torch.Tensor, best_dist: torch.Tensor,
     best_key = torch.full((n_kp,), INF, dtype=torch.int64, device=dev)
     best_key = best_key.scatter_reduce(0, slot, key, reduce="amin")
     winner = valid & (key == best_key[slot])
-    # `.at[...].set(mode="drop")`: out-of-range targets are masked out
-    kp_to_src = torch.full((n_kp,), -1, dtype=torch.int32, device=dev)
-    kp_to_src[best_kp.long()[winner]] = rows[winner].to(torch.int32)
-    return kp_to_src
+    # `.at[...].set(mode="drop")`: the rows that do not win write a spare
+    # slot, dropped after (a keypoint has one winner: keys are distinct)
+    kp_to_src = torch.full((n_kp + 1,), -1, dtype=torch.int32, device=dev)
+    kp_to_src[torch.where(winner, best_kp.long(), n_kp)] = rows.to(
+        torch.int32)
+    return kp_to_src[:n_kp]
 
 
 def rotation_consistency(angle_src: torch.Tensor, angle_kp: torch.Tensor,
@@ -85,9 +87,9 @@ def masked_best2(dist: torch.Tensor, mask: torch.Tensor
     d = torch.where(mask, dist, INF)
     best = torch.amin(d, dim=1)
     best_idx = torch.argmin(d, dim=1)
-    d2 = d.clone()
-    d2[torch.arange(d.shape[0], device=d.device), best_idx] = INF
-    second = torch.amin(d2, dim=1)
+    # a scatter of the scalar: an assignment of one would copy it from the
+    # host, and wait for the card
+    second = torch.amin(d.scatter(1, best_idx[:, None], INF), dim=1)
     return best_idx.to(torch.int32), best, second
 
 

@@ -145,6 +145,21 @@ def set_rows(table: torch.Tensor, idx, vals) -> torch.Tensor:
     return out
 
 
+def set_rows_where(table: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor,
+                   vals) -> torch.Tensor:
+    """Out-of-place `table.at[idx].set(vals)` of the entries where `ok`
+    (idx, ok and vals alike along the first axis): the others write a
+    spare row, dropped after, so nothing waits for the card as a masked
+    `idx[ok]` would."""
+    n = table.shape[0]
+    out = torch.cat([table, table[:1]])
+    if not isinstance(vals, torch.Tensor):
+        # made on the card: an assigned number is copied from the host
+        vals = torch.full((), vals, dtype=table.dtype, device=table.device)
+    out.index_put_((torch.where(ok, idx.long(), n),), vals)
+    return out[:n]
+
+
 # --------------------------------------------------------------- insertion
 
 def insert_keyframe(m: MapState, feats: FrameFeatures, pose: torch.Tensor,
@@ -263,7 +278,7 @@ def merge_obs_columns(m: MapState, remap: torch.Tensor,
     Zt = torch.zeros((P + 1, K), dtype=torch.int32, device=dev)
     Zt[:P] = m.obs_ind.T.to(torch.int32)
     g = Zt[src]                      # loser columns (before the update)
-    Zt[src] = 0                      # clear losers first: a winner may
+    Zt.index_fill_(0, src, 0)        # clear losers first: a winner may
     Zt.index_add_(0, dst, g)         # itself be a later loser
     return m._replace(obs_ind=(Zt[:P] > 0).T.contiguous())
 

@@ -36,7 +36,9 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    # negated in place of a product with a host-made [1, -1, -1, -1]: the
+    # same bits, and no copy to the card (which waits for it)
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,7 @@ scatters or one-hot matmuls, both fixed-order under XLA.)
 An assignment `out[idx] = vals` with equal indices is the same kind of
 hazard: on the CPU the last of them lands, on the card whichever thread
 writes last, which can change from run to run. `put_last` makes the last
-one land on both.
+one land on both, without a device -> host sync.
 """
 
 from __future__ import annotations
@@ -33,11 +33,15 @@ def put_last(out: torch.Tensor, idx: torch.Tensor,
     """out[idx[i]] = vals[i] along the first axis, in place, where of equal
     indices the one with the largest i lands (what the assignment gives on
     the CPU, and the JAX package's scatter there), on every device.
-    Returns out."""
+    Returns out. Sync-free: each row gathers the last update aimed at it
+    (no mask indexing, so nothing waits for the card)."""
+    n = idx.shape[0]
+    if n == 0:
+        return out
     idx = idx.long()
-    pos = torch.arange(idx.shape[0], device=idx.device)
+    pos = torch.arange(n, device=idx.device)
     last = torch.full((out.shape[0],), -1, dtype=torch.int64,
                       device=idx.device).scatter_reduce(0, idx, pos, "amax")
-    keep = last[idx] == pos
-    out[idx[keep]] = vals[keep]
-    return out
+    hit = (last >= 0).reshape((-1,) + (1,) * (out.dim() - 1))
+    src = vals[torch.clamp(last, min=0)].to(out.dtype)
+    return out.copy_(torch.where(hit, src, out))

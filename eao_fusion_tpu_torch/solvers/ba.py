@@ -6,15 +6,19 @@ dense [C, N] observation layout, with free plane landmarks
 
 Both run the two-phase Levenberg-Marquardt schedule: phase 1 (≤ n_iters1),
 a chi2 / positive-depth outlier gate, phase 2 (≤ n_iters2), as
-`Optimizer::LocalBundleAdjustment` / `BundleAdjustment` schedule it. The
-accept test and the stopping rule read the cost on the host once per
-iteration (the JAX `while_loop` becomes a Python loop); the arithmetic of
-that host logic is done in float32, as the JAX loop does it.
+`Optimizer::LocalBundleAdjustment` / `BundleAdjustment` schedule it, the
+arithmetic of the accept test and the stopping rule in float32, as the JAX
+`while_loop` does it. Global BA reads the cost on the host once per
+iteration (`_lm_phase`, a Python loop). Local BA keeps the test on the
+device (`_lm_phase_device`): every iteration runs, those after the phase
+is done change nothing, and the answer is the host loop's bit for bit.
 
-`bundle_adjust_coo`: C cameras, a window of Pw points and E edges. The
-edge passes are bound once per call (`solvers/ba_edge.EdgePass`: the CUDA
-kernels for CUDA tensors). Each iteration runs the full pass, which also
-sums the camera and point blocks (the JAX package's one-hot [C,E] /
+`bundle_adjust_coo`: C cameras, a window of Pw points and E edges, in a
+workspace of their shapes (`utils/graphs`) where the LM state lives and
+the edge passes are bound once (`solvers/ba_edge.EdgePass`: the CUDA
+kernels for CUDA tensors); on a card the stages between the kernel
+launches are replays of CUDA graphs. Each iteration runs the full pass,
+which also sums the camera and point blocks (the JAX package's one-hot [C,E] /
 [Pw,E] matmuls; inside the kernel on the card, `index_add_` in the plain
 version), and the chi2 sum of the accept test; it gathers the Hcp block
 into a dense [C, Pw] grid through an edge-index table, solves the reduced
@@ -42,7 +46,7 @@ from eao_fusion_tpu_torch.config import SolverConfig
 from eao_fusion_tpu_torch.ops import lie
 from eao_fusion_tpu_torch.ops.scatter import index_sum
 from eao_fusion_tpu_torch.solvers import ba_edge, chol
-from eao_fusion_tpu_torch.utils import profiling
+from eao_fusion_tpu_torch.utils import graphs, profiling
 
 
 class BACooProblem(NamedTuple):
@@ -198,6 +202,67 @@ def _lm_phase(state, cost, step, iters: int, damping: float, ftol: float):
     return state
 
 
+def _lm_start(ws: graphs.Workspace, c0: torch.Tensor, damping: float) -> None:
+    """The device carry of an LM phase (`lm_c`, the current cost; `lm_lam`,
+    the damping; `lm_stall`, the iterations in a row without a relative
+    improvement of ftol; `lm_done`) at the phase's start."""
+    dev = c0.device
+    ws.put("lm_c", c0)
+    ws.put("lm_lam", torch.full((), damping, dtype=torch.float32, device=dev))
+    ws.put("lm_stall", torch.zeros((), dtype=torch.int32, device=dev))
+    ws.put("lm_done", torch.zeros((), dtype=torch.bool, device=dev))
+
+
+def _lm_accept(ws: graphs.Workspace, state, cand, c_new: torch.Tensor,
+               ftol: float) -> None:
+    """One iteration's accept test on the device carry, `_lm_phase`'s
+    float32 arithmetic: a finite lower cost is accepted (the state takes
+    the candidate, lam halves to at least 1e-6), else lam grows fivefold
+    to at most 1e3; an accept that improves less than ftol, or a reject,
+    is a stall, and two in a row end the phase. Once done the carry and
+    the state stay as they are."""
+    c, lam, stall, done = ws.lm_c, ws.lm_lam, ws.lm_stall, ws.lm_done
+    live = ~done
+    accept = live & (c_new < c) & torch.isfinite(c_new)
+    improved = accept & (c - c_new >= torch.clamp(c, min=1e-9) * ftol)
+    new_lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-6),
+                          torch.clamp(lam * 5.0, max=1e3))
+    new_stall = torch.where(improved, 0, stall + 1)
+    for x, y in zip(state, cand):
+        x.copy_(torch.where(accept, y, x))
+    c.copy_(torch.where(accept, c_new, c))
+    lam.copy_(torch.where(live, new_lam, lam))
+    stall.copy_(torch.where(live, new_stall, stall))
+    done.copy_(stall >= 2)
+
+
+def _lm_phase_device(ws: graphs.Workspace, state, cost, step, iters: int,
+                     damping: float, ftol: float, extra=None) -> None:
+    """`_lm_phase` with its carry on the device, so that nothing is read on
+    the host: `iters` iterations always run, and those after the phase is
+    done leave the state as it is; the state is the same as the host
+    loop's, bit for bit. `state` is a tuple of the workspace's tensors,
+    updated in place; `cost(xs)` a [] tensor of the workspace's, to which
+    `extra(xs)` adds inside the accept test's stage; `step(xs, lam)` a
+    candidate of the workspace's, lam the carry's [] float32 tensor.
+    Without graphs (on the CPU) the host reads the carry for free, and
+    the loop ends once done, as the host loop does."""
+
+    def total(xs, base):
+        return base if extra is None else base + extra(xs)
+
+    base = cost(state)
+    ws.run("lm.start", lambda: _lm_start(ws, total(state, base), damping))
+    for _ in range(iters):
+        with profiling.span("solvers.lm_iter"):
+            cand = step(state, ws.lm_lam)
+            c_new = cost(cand)
+            ws.run("lm.accept", lambda: _lm_accept(
+                ws, state, cand, total(cand, c_new), ftol))
+        if not ws.graphs_on and bool(ws.lm_done):
+            break
+
+
 def bundle_adjust_coo(prob: BACooProblem,
                       plane_block: Optional[Tuple[torch.Tensor, ...]] = None,
                       *, cam: Tuple[float, ...], cfg: SolverConfig,
@@ -205,53 +270,96 @@ def bundle_adjust_coo(prob: BACooProblem,
                       damping: float = 1e-3, ftol: float = 1e-4) -> BAResult:
     """Two-phase LM BA on the COO layout; obs_inlier is [E]. `plane_block`
     = (plane_w [C,F,4], meas_c [C,F,4], valid [C,F]) adds fixed-plane
-    camera factors to the cost and, on the free cameras, to Hcc / bc."""
+    camera factors to the cost and, on the free cameras, to Hcc / bc.
+
+    The problem is copied into the workspace of its shapes and constants
+    (`utils/graphs`), where the LM state and carry live; an iteration is
+    K2, the Schur assembly, K4, the back-substitution, K3 and the accept
+    test (`_lm_phase_device`), the hand-written kernels launched eagerly
+    and, on a card, the stages between them replayed as CUDA graphs. The
+    result is new tensors."""
     C = prob.cam_pose.shape[0]
     Pw = prob.pt_xyz.shape[0]
     E = prob.obs_cam.shape[0]
     dev = prob.cam_pose.device
     f32 = torch.float32
-    cam_idx = prob.obs_cam.long()
-    free_cam = (prob.cam_valid & (~prob.cam_fixed)).to(f32)
-    obs_ok0 = prob.obs_valid & (prob.obs_pt >= 0) & prob.cam_valid[cam_idx]
-    tgt0 = torch.where(obs_ok0, prob.obs_pt.long(), Pw)
-    lut = edge_lut(prob.obs_cam, tgt0, C, Pw)                  # [C, Pw]
-    # the edge passes, bound once to the fixed part of the problem
-    edges = ba_edge.EdgePass(
-        ba_edge.EdgeInputs(
-            cam_pose=prob.cam_pose, pt_xyz=prob.pt_xyz,
-            obs_cam=prob.obs_cam.to(torch.int32),
-            obs_pt=torch.clamp(prob.obs_pt, 0, Pw - 1).to(torch.int32),
-            obs_uv=prob.obs_uv, obs_ur=prob.obs_ur,
-            obs_inv_sigma2=prob.obs_inv_sigma2, free_cam=free_cam),
-        tgt0, cam=cam, chi2_mono=cfg.chi2_mono, chi2_stereo=cfg.chi2_stereo)
-    eye3 = torch.eye(3, dtype=f32, device=dev)
-    eye6 = torch.eye(6, dtype=f32, device=dev)
-    pt_free = prob.pt_valid[:, None, None]
+    inputs = tuple(prob) + (tuple(plane_block) if plane_block is not None
+                            else ())
+    ws = graphs.workspace(
+        ("bundle_adjust_coo", dev, tuple(cam), cfg, n_iters1, n_iters2,
+         damping, ftol, plane_block is not None)
+        + tuple((t.dtype, tuple(t.shape)) for t in inputs), dev)
+    for i, t in enumerate(inputs):
+        ws.put(f"in{i}", t)
+    p = BACooProblem(*(getattr(ws, f"in{i}") for i in range(len(prob))))
+    pb = (tuple(getattr(ws, f"in{i}") for i in range(len(prob), len(inputs)))
+          or None)
+    kw = dict(cam=cam, chi2_mono=cfg.chi2_mono, chi2_stereo=cfg.chi2_stereo)
 
-    def robust_chi2(cam_pose, pt_xyz, active_f):
-        total = edges.chi2_sum(cam_pose, pt_xyz, active_f)
-        if plane_block is not None:
-            total = total + _plane_terms(cam_pose, *plane_block, cfg)[-1]
-        return total
+    def setup():
+        free_cam = (p.cam_valid & (~p.cam_fixed)).to(f32)
+        obs_ok0 = p.obs_valid & (p.obs_pt >= 0) & p.cam_valid[p.obs_cam.long()]
+        tgt0 = torch.where(obs_ok0, p.obs_pt.long(), Pw)
+        ws.put("free_cam", free_cam)
+        ws.put("obs_ok0", obs_ok0)
+        ws.put("ok0_f", obs_ok0.to(f32))
+        ws.put("active", obs_ok0.to(f32))
+        ws.put("lut", edge_lut(p.obs_cam, tgt0, C, Pw))           # [C, Pw]
+        ws.put("thr", torch.where(p.obs_ur >= 0.0, cfg.chi2_stereo,
+                                  cfg.chi2_mono))
+        ws.put("cam", p.cam_pose)
+        ws.put("pt", p.pt_xyz)
+        x = ba_edge.EdgeInputs(
+            cam_pose=ws.cam, pt_xyz=ws.pt, obs_cam=p.obs_cam.to(torch.int32),
+            obs_pt=torch.clamp(p.obs_pt, 0, Pw - 1).to(torch.int32),
+            obs_uv=p.obs_uv, obs_ur=p.obs_ur,
+            obs_inv_sigma2=p.obs_inv_sigma2, free_cam=ws.free_cam)
+        # the edge passes' fixed tensors, refreshed in place
+        ws.layout = {k: ws.put("edge_" + k, t) for k, t in
+                     ba_edge.EdgePass.layout(x, tgt0).items()}
 
-    def gn_iter(cam_pose, pt_xyz, active_f, lam: float):
-        # acc_c, acc and y are the binding's buffers: all used up below,
-        # before the next gn_iter overwrites them
-        acc_c, acc, y = edges.full(cam_pose, pt_xyz, active_f)
+    ws.run("ba.setup", setup)
+    if "edges" not in ws:
+        # the edge passes, bound once to the workspace's tensors
+        lay = ws.layout
+        ws.edges = ba_edge.EdgePass(
+            ba_edge.EdgeInputs(ws.cam, ws.pt, lay["obs_cam"], lay["obs_pt"],
+                               lay["obs_uv"], lay["obs_ur"], lay["obs_is2"],
+                               lay["free_cam"]), lay["tgt"], fixed=lay, **kw)
+    edges = ws.edges
+    if "edge_out" not in ws:
+        ws.edge_out = torch.empty((3, E), dtype=f32, device=dev)
+
+    def plane_cost(xs):
+        return _plane_terms(xs[0], *pb, cfg)[-1]
+
+    def cost(xs):
+        return edges.chi2_sum(xs[0], xs[1], ws.active)
+
+    def schur(xs, sums, lam):
+        """The reduced camera system of one GN step (`M`, `rhs`) and what
+        the back-substitution needs (`A2`, `bp`, `Hpp_inv`)."""
+        # acc_c, acc and y are the binding's buffers: all used up here,
+        # before the next K2 overwrites them
+        acc_c, acc, y = sums
+        eye3 = torch.eye(3, dtype=f32, device=dev)
+        eye6 = torch.eye(6, dtype=f32, device=dev)
+        free_cam = ws.free_cam
         Y = y.T.reshape(E, 6, 3)
         Hcc = acc_c[:, :36].reshape(C, 6, 6)
         bc = -acc_c[:, 36:]
-        if plane_block is not None:
-            Hp, bp_c, _ = _plane_terms(cam_pose, *plane_block, cfg)
+        if pb is not None:
+            Hp, bp_c, _ = _plane_terms(xs[0], *pb, cfg)
             Hcc = Hcc + Hp * free_cam[:, None, None]
             bc = bc + bp_c * free_cam[:, None]
-        Hpp = acc[:, :9].reshape(Pw, 3, 3) + (lam + 1e-6) * eye3
+        # (lam + 1e-6) in double, as the host loop's Python float
+        Hpp = (acc[:, :9].reshape(Pw, 3, 3)
+               + (lam.double() + 1e-6).float() * eye3)
         bp = -acc[:, 9:]
-        Hpp_inv = torch.where(pt_free, _inv3x3(Hpp), 0.0)
+        Hpp_inv = torch.where(p.pt_valid[:, None, None], _inv3x3(Hpp), 0.0)
 
         # Hcp gathered into the dense [C, Pw] grid
-        A = torch.cat([Y, Y.new_zeros((1, 6, 3))])[lut]       # [C, Pw, 6, 3]
+        A = torch.cat([Y, Y.new_zeros((1, 6, 3))])[ws.lut]   # [C, Pw, 6, 3]
         AH = torch.einsum("cpij,pjk->cpik", A, Hpp_inv)
         AH2 = AH.permute(0, 2, 1, 3).reshape(C * 6, Pw * 3)
         A2 = A.permute(0, 2, 1, 3).reshape(C * 6, Pw * 3)
@@ -263,38 +371,48 @@ def bundle_adjust_coo(prob: BACooProblem,
         S[diag, diag] += (eye6 * (1.0 - free_cam)[:, None, None]
                           + eye6 * lam)
         rhs = rhs * free_cam[:, None]
-        M = S.permute(0, 2, 1, 3).reshape(C * 6, C * 6)
-        delta_c = chol.cholesky_solve(M, rhs.reshape(-1)).reshape(C, 6)
+        ws.put("M", S.permute(0, 2, 1, 3).reshape(C * 6, C * 6))
+        ws.put("rhs", rhs.reshape(-1))
+        ws.put("A2", A2)
+        ws.put("bp", bp)
+        ws.put("Hpp_inv", Hpp_inv)
+
+    def back(xs):
+        """The candidate (`cand_cam`, `cand_pt`) from the camera step."""
+        delta_c = ws.dx.reshape(C, 6)
         good = torch.all(torch.isfinite(delta_c))
         delta_c = torch.where(good, delta_c, 0.0)
-        t = bp - (A2.T @ delta_c.reshape(-1)).reshape(Pw, 3)
-        delta_p = torch.einsum("pij,pj->pi", Hpp_inv, t)
-        delta_p = torch.clamp(torch.where(good & prob.pt_valid[:, None],
+        t = ws.bp - (ws.A2.T @ delta_c.reshape(-1)).reshape(Pw, 3)
+        delta_p = torch.einsum("pij,pj->pi", ws.Hpp_inv, t)
+        delta_p = torch.clamp(torch.where(good & p.pt_valid[:, None],
                                           delta_p, 0.0), -10.0, 10.0)
-        return lie.se3_retract(cam_pose, delta_c), pt_xyz + delta_p
+        ws.put("cand_cam", lie.se3_retract(xs[0], delta_c))
+        ws.put("cand_pt", xs[1] + delta_p)
 
-    def run_phase(cam_pose, pt_xyz, active, iters):
-        active_f = active.to(f32)
-        return _lm_phase((cam_pose, pt_xyz),
-                         lambda st: robust_chi2(*st, active_f),
-                         lambda st, lam: gn_iter(*st, active_f, lam),
-                         iters, damping, ftol)
+    def step(xs, lam):
+        sums = edges.full(xs[0], xs[1], ws.active)                   # K2
+        ws.run("ba.schur", lambda: schur(xs, sums, lam))
+        ws.put("dx", chol.cholesky_solve(ws.M, ws.rhs))              # K4
+        ws.run("ba.back", lambda: back(xs))
+        return ws.cand_cam, ws.cand_pt
 
-    def classify(cam_pose, pt_xyz, thr):
-        """Raw chi2 + behind flag for the between-phase outlier gate."""
-        _, chi2, behind = edges.chi2_edges(cam_pose, pt_xyz,
-                                           obs_ok0.to(f32))
-        return obs_ok0 & (chi2 <= thr) & (behind < 0.5), chi2
+    def classify():
+        """The between-phase outlier gate on the raw chi2 and the behind
+        flag of K3's per-edge pass; the inliers' chi2 sum."""
+        _, chi2, behind = ws.edge_out
+        inlier = ws.obs_ok0 & (chi2 <= ws.thr) & (behind < 0.5)
+        ws.put("inlier", inlier)
+        ws.put("active", inlier.to(f32))
+        ws.put("total", torch.sum(torch.where(inlier, chi2, 0.0)))
 
-    thr = torch.where(prob.obs_ur >= 0.0, cfg.chi2_stereo, cfg.chi2_mono)
-    cam_pose, pt_xyz = run_phase(prob.cam_pose.contiguous(),
-                                 prob.pt_xyz.contiguous(), obs_ok0, n_iters1)
-    inlier, _ = classify(cam_pose, pt_xyz, thr)
-    cam_pose, pt_xyz = run_phase(cam_pose, pt_xyz, inlier, n_iters2)
-    inlier, chi2 = classify(cam_pose, pt_xyz, thr)
-    total = torch.sum(torch.where(inlier, chi2, 0.0))
-    return BAResult(cam_pose=cam_pose, pt_xyz=pt_xyz, obs_inlier=inlier,
-                    chi2=total)
+    state = (ws.cam, ws.pt)
+    for iters in (n_iters1, n_iters2):
+        _lm_phase_device(ws, state, cost, step, iters, damping, ftol,
+                         extra=plane_cost if pb is not None else None)
+        edges.chi2_edges(ws.cam, ws.pt, ws.ok0_f, out=ws.edge_out)   # K3
+        ws.run("ba.classify", classify)
+    return BAResult(cam_pose=ws.cam.clone(), pt_xyz=ws.pt.clone(),
+                    obs_inlier=ws.inlier.clone(), chi2=ws.total.clone())
 
 
 # --------------------------------------------------------------------------

@@ -180,33 +180,47 @@ class EdgePass:
     that fixed order, so a call gives the same bits every time), packs the
     pointers and the scalars into one `BaEdgeArgs`, and allocates the
     outputs and scratch; a call then checks its three tensors and
-    launches. `full` and `chi2_sum` return the binding's own buffers, which
-    their next call overwrites: use the result before that. `chi2_edges`
-    returns fresh tensors. On CPU tensors every call runs the plain
-    version, and `kernels` is never touched."""
+    launches. With `fixed` (the tensors of `EdgePass.layout`, kept by the
+    caller) it binds to those as they are, so that the caller may refresh
+    them in place for the next problem of the same shape. `full` and
+    `chi2_sum` return the binding's own buffers, which their next call
+    overwrites: use the result before that. `chi2_edges` returns fresh
+    tensors, or writes a caller's. On CPU tensors every call runs the
+    plain version into the same kind of buffers, and `kernels` is never
+    touched."""
 
     def __init__(self, x: EdgeInputs, tgt: torch.Tensor, *, cam,
-                 chi2_mono: float, chi2_stereo: float):
+                 chi2_mono: float, chi2_stereo: float, fixed: dict = None):
         self.C, self.Pw = x.cam_pose.shape[0], x.pt_xyz.shape[0]
         self.E = x.obs_cam.shape[0]
         self._kw = dict(cam=cam, chi2_mono=chi2_mono, chi2_stereo=chi2_stereo)
         self.device = x.cam_pose.device
-        if not x.cam_pose.is_cuda:
-            self._x, self._tgt = x, tgt
-            self._lib = None
+        if fixed is None:
+            fixed = self.layout(x, tgt)
+        if x.cam_pose.is_cuda:
+            self._bind(fixed)
             return
-        self._bind(x, tgt)
+        self._x = EdgeInputs(x.cam_pose, x.pt_xyz, fixed["obs_cam"],
+                             fixed["obs_pt"], fixed["obs_uv"],
+                             fixed["obs_ur"], fixed["obs_is2"],
+                             fixed["free_cam"])
+        self._tgt = fixed["tgt"]
+        self._lib = None
+        self._acc_c = torch.empty((self.C, 42), device=self.device)
+        self._acc_p = torch.empty((self.Pw, 12), device=self.device)
+        self._y = torch.empty((18, self.E), device=self.device)
+        self._sum = torch.empty((), device=self.device)
 
-    def _bind(self, x: EdgeInputs, tgt: torch.Tensor) -> None:
-        C, Pw, E, dev = self.C, self.Pw, self.E, self.device
+    @staticmethod
+    def layout(x: EdgeInputs, tgt: torch.Tensor) -> dict:
+        """The fixed tensors in the kernels' layout, by `BaEdgeArgs` field:
+        the edge list, uv, ur, 1/σ², the free-camera flags and the point
+        targets in their dtypes, and the summation order of K2 (edges by
+        camera, clamped into range as the kernel reads them, and by point
+        target). Device work only, no host sync: a caller that keeps these
+        tensors may refresh them in place and bind once (`fixed=`)."""
+        C, Pw, E = x.cam_pose.shape[0], x.pt_xyz.shape[0], x.obs_cam.shape[0]
         f32, i32 = torch.float32, torch.int32
-        lib = kernels.library("ba_edge")
-        if lib.ba_edge_args_size() != ctypes.sizeof(_Args):
-            raise RuntimeError("ba_edge: BaEdgeArgs differs from _Args")
-        if not 1 <= C <= lib.ba_edge_max_cameras() or Pw < 1:
-            raise ValueError(f"edge pass takes 1 to "
-                             f"{lib.ba_edge_max_cameras()} cameras and at "
-                             f"least one point, got C = {C}, Pw = {Pw}")
         fixed = {}
         for t, name, dt, shape in (
                 (x.obs_cam, "obs_cam", i32, (E,)),
@@ -216,17 +230,31 @@ class EdgePass:
                 (x.obs_ur, "obs_ur", f32, (E,)),
                 (x.obs_inv_sigma2, "obs_is2", f32, (E,)),
                 (x.free_cam, "free_cam", f32, (C,))):
-            kernels.require_device(t, name, dev)
+            if t.device != x.cam_pose.device:
+                raise ValueError(f"{name}: expected a tensor on "
+                                 f"{x.cam_pose.device}, got {t.device}")
             t = t.to(dt).contiguous()
             kernels.require_layout(t, name, dt, shape)
             fixed[name] = t
-        if fixed["obs_uv"].data_ptr() % 8:      # the kernel reads float2
-            fixed["obs_uv"] = fixed["obs_uv"].clone()
-        # the fixed summation order: edges by camera (clamped into range, as
-        # the kernel reads them) and by point target
         fixed["cam_order"], fixed["cam_start"] = segment_layout(
             torch.clamp(fixed["obs_cam"], 0, C - 1), C)
         fixed["pt_order"], fixed["pt_start"] = segment_layout(fixed["tgt"], Pw)
+        return fixed
+
+    def _bind(self, fixed: dict) -> None:
+        C, Pw, E, dev = self.C, self.Pw, self.E, self.device
+        f32, i32 = torch.float32, torch.int32
+        lib = kernels.library("ba_edge")
+        if lib.ba_edge_args_size() != ctypes.sizeof(_Args):
+            raise RuntimeError("ba_edge: BaEdgeArgs differs from _Args")
+        if not 1 <= C <= lib.ba_edge_max_cameras() or Pw < 1:
+            raise ValueError(f"edge pass takes 1 to "
+                             f"{lib.ba_edge_max_cameras()} cameras and at "
+                             f"least one point, got C = {C}, Pw = {Pw}")
+        for name, t in fixed.items():
+            kernels.require_device(t, name, dev)
+        if fixed["obs_uv"].data_ptr() % 8:      # the kernel reads float2
+            fixed = dict(fixed, obs_uv=fixed["obs_uv"].clone())
         blocks = -(-E // lib.ba_edge_threads())
         self._acc = torch.empty(C * 42 + Pw * 12, dtype=f32, device=dev)
         self._acc_c = self._acc[:C * 42].view(C, 42)
@@ -266,8 +294,12 @@ class EdgePass:
         """(acc_c [C, 42], acc_p [Pw, 12], Y [18, E]): K2, one kernel,
         summed in the bind-time order."""
         if self._lib is None:
-            return edge_sums_plain(self._plain_inputs(cam_pose, pt_xyz),
-                                   active, self._tgt, **self._kw)
+            out = (self._acc_c, self._acc_p, self._y)
+            for o, t in zip(out, edge_sums_plain(
+                    self._plain_inputs(cam_pose, pt_xyz), active, self._tgt,
+                    **self._kw)):
+                o.copy_(t)
+            return out
         self._check(cam_pose, pt_xyz, active)
         kernels.launch("ba_edge_full", self._lib.ba_edge_full_launch,
                        self.device, self._argp, cam_pose.data_ptr(),
@@ -279,8 +311,8 @@ class EdgePass:
         """Σ robust masked chi2, a 0-d tensor: K3's sum variant, one kernel,
         summed in a fixed order (the same bits on every call)."""
         if self._lib is None:
-            return chi2_sum_plain(self._plain_inputs(cam_pose, pt_xyz),
-                                  active, **self._kw)
+            return self._sum.copy_(chi2_sum_plain(
+                self._plain_inputs(cam_pose, pt_xyz), active, **self._kw))
         self._check(cam_pose, pt_xyz, active)
         kernels.launch("ba_edge_chi2", self._lib.ba_edge_chi2_launch,
                        self.device, self._argp, cam_pose.data_ptr(),
@@ -289,16 +321,24 @@ class EdgePass:
         return self._sum
 
     def chi2_edges(self, cam_pose: torch.Tensor, pt_xyz: torch.Tensor,
-                   active: torch.Tensor
+                   active: torch.Tensor, out: torch.Tensor = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(robust masked chi2 [E], raw chi2 [E], behind flag [E] f32): K3's
-        per-edge variant, into fresh tensors."""
+        per-edge variant, into fresh tensors, or the rows of `out` [3, E]
+        where given."""
         if self._lib is None:
-            return edge_pass_chi2_plain(self._plain_inputs(cam_pose, pt_xyz),
-                                        active, **self._kw)
+            got = edge_pass_chi2_plain(self._plain_inputs(cam_pose, pt_xyz),
+                                       active, **self._kw)
+            if out is None:
+                return got
+            out.copy_(torch.stack(got))
+            return out[0], out[1], out[2]
         self._check(cam_pose, pt_xyz, active)
-        out = torch.empty((3, self.E), dtype=torch.float32,
-                          device=self.device)
+        if out is None:
+            out = torch.empty((3, self.E), dtype=torch.float32,
+                              device=self.device)
+        else:
+            kernels.require(out, "out", torch.float32, (3, self.E))
         kernels.launch("ba_edge_chi2", self._lib.ba_edge_chi2_launch,
                        self.device, self._argp, cam_pose.data_ptr(),
                        pt_xyz.data_ptr(), active.data_ptr(), None,

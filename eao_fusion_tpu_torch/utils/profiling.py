@@ -20,8 +20,10 @@ trace share one timeline. On a CUDA card it also counts every device ->
 host synchronisation (`.item()`, `.tolist()`, `int()` of a tensor, boolean
 mask indexing, `nonzero`, a blocking copy to or from the card) as
 `host_sync`: `torch.cuda.set_sync_debug_mode("warn")` makes each one a
-warning, which the recorder counts and drops. `drain()` returns what was
-recorded and clears it; spans are written out only at the end of a run.
+warning, which the recorder counts and drops. `utils/graphs` counts
+`graph_capture` and `graph_replay`, a stage captured as a CUDA graph and a
+replay of one. `drain()` returns what was recorded and clears it; spans
+are written out only at the end of a run.
 
 `follow_profiler()` (called once a chunk by `steady.slam_chunk`) turns
 recording on while a torch profiler records, and leaves it on after the
@@ -51,6 +53,9 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 SYNC_COUNTER = "host_sync"
+# a stage captured as a CUDA graph, and replayed (`utils/graphs`)
+CAPTURE_COUNTER = "graph_capture"
+REPLAY_COUNTER = "graph_replay"
 _SYNC_MESSAGE = "synchronizing CUDA operation"
 
 
