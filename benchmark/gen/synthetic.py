@@ -1,8 +1,9 @@
 """The benchmark's stream: a frozen numpy copy of the port's synthetic
-generator (`eao_fusion_tpu_torch/io/synthetic.py`: the room scene, its
-textures, the `tour` trajectory, the ray cast and the box projection),
-kept here so that later changes to the program cannot move the
-benchmark's inputs.
+generator (`eao_fusion_tpu_torch/io/synthetic.py`: the primitives, the
+block texture, the ray cast and the box projection), kept here so that
+later changes to the program cannot move the benchmark's inputs. The
+scenes and their trajectories are modules of their own
+(`benchmark/gen/scenes/<scene>.py`).
 
 The textures' random draws are taken here in the generator's order.
 `render_frame` is the reference ray cast that `render_torch` repeats on
@@ -58,7 +59,8 @@ class Scene:
     textures: list       # [S, S] float32 arrays
 
 
-def _v(*a) -> np.ndarray:
+def vec(*a) -> np.ndarray:
+    """A float32 vector."""
     return np.array(a, F32)
 
 
@@ -78,48 +80,10 @@ def textures_numpy(scene: Scene) -> np.ndarray:
     return np.stack(scene.textures)
 
 
-def make_room_scene(seed: int, n_objects: int = 4,
-                    closed: bool = True) -> Scene:
-    """A room in the first camera's frame (x right, y down, z forward):
-    floor at y = 1.2, back wall at z = 4.5, side walls at x = -3 and 3,
-    boxes at table height; `closed` adds a wall behind the camera and
-    extends the floor back to it."""
-    r = np.random.default_rng(seed)
-    textures = [blocky_texture(r) for _ in range(4 + n_objects)]
-    rects = [RectPrim(_v(-3.0, 1.2, 0.2), _v(6.0, 0, 0), _v(0, 0, 4.3), 0),
-             RectPrim(_v(-3.0, -2.0, 4.5), _v(6.0, 0, 0), _v(0, 3.2, 0), 1),
-             RectPrim(_v(-3.0, -2.0, 0.2), _v(0, 0, 4.3), _v(0, 3.2, 0), 2),
-             RectPrim(_v(3.0, -2.0, 0.2), _v(0, 0, 4.3), _v(0, 3.2, 0), 3)]
-    boxes = []
-    for i in range(n_objects):
-        cx = r.uniform(-1.5, 1.5)
-        cz = r.uniform(2.9, 4.2)
-        w, h, d = r.uniform(0.3, 0.55, 3)
-        y_bottom = r.uniform(0.55, 0.9)
-        boxes.append(BoxPrim(_v(cx - w / 2, y_bottom - h, cz - d / 2),
-                             _v(cx + w / 2, y_bottom, cz + d / 2), 4 + i,
-                             class_id=i % 8))
-    if closed:
-        textures.append(blocky_texture(r))
-        rects.append(RectPrim(_v(-3.0, -2.0, -1.5), _v(6.0, 0, 0),
-                              _v(0, 3.2, 0), len(textures) - 1))
-        rects[0] = RectPrim(_v(-3.0, 1.2, -1.5), _v(6.0, 0, 0),
-                            _v(0, 0, 6.0), 0)
-    return Scene(rects, boxes, textures)
-
-
-def make_trajectory(n_frames: int, style: str) -> np.ndarray:
-    """Tcw poses [n, 7]. `tour`: one closed lap around the room with a
-    full turn of yaw, frame n - 1 at frame 0's pose, so that laps replay
-    smoothly."""
-    i = np.arange(n_frames, dtype=np.float64)
-    if style == "tour":
-        ang = 2 * np.pi * (i / max(n_frames - 1, 1))
-        tx, ty, tz = 0.5 * np.sin(ang), 0.04 * np.sin(2 * ang), \
-            0.5 * (1 - np.cos(ang))
-        yaw, pitch = ang, np.zeros_like(ang)
-    else:
-        raise ValueError(f"unknown trajectory style {style!r}")
+def poses(tx, ty, tz, pitch, yaw) -> np.ndarray:
+    """Tcw poses [n, 7] of camera centres (tx, ty, tz) [n] and the angles
+    pitch, yaw [n] (float64 arrays, rounded to float32 here): the one
+    conversion that every scene's trajectories share."""
     w = np.stack([pitch, yaw, np.zeros_like(yaw)], axis=-1).astype(F32)
     q = lie.so3_exp_quat(w)
     twc = np.concatenate([q, np.stack([tx, ty, tz], -1).astype(F32)], -1)

@@ -1,11 +1,13 @@
 """Plumbing shared by the benchmark's runs: the files a cell is built
-from (found by the names in BENCHMARK.json), the run's environment, the
-port's configuration from a configuration file, and the check that
-nothing of JAX or of the JAX package was loaded."""
+from (found by the names in BENCHMARK.json), the modules its files name
+(scenes, kinds of check), the run's environment, the port's configuration
+from a configuration file, and the check that nothing of JAX or of the
+JAX package was loaded."""
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 import sys
@@ -34,9 +36,23 @@ def load_json(path: Path) -> dict:
         return json.load(fh)
 
 
+def find_module(package: str, name: str):
+    """The module `name` of `package`, or, where `name` holds a dot, the
+    module of that whole name: a file names what it uses, and a new file
+    brings it."""
+    full = name if "." in name else f"{package}.{name}"
+    try:
+        return importlib.import_module(full)
+    except ModuleNotFoundError as exc:
+        if exc.name and (full + ".").startswith(exc.name + "."):
+            raise BenchError(f"no module {full} for {name!r}") from exc
+        raise
+
+
 def load_cell(name: str) -> dict:
     """BENCHMARK.json's entry for cell `name` with its configuration,
-    traffic and workload files."""
+    traffic and workload files, once each limit of the workload is
+    yielded by a kind that its `capture` names (`check.require`)."""
     bench = load_json(ROOT / "BENCHMARK.json")
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -44,10 +60,13 @@ def load_cell(name: str) -> dict:
     cell = cells[name]
     configs = {c["name"]: c for c in bench["configs"]}
     conf = load_json(ROOT / configs[cell["config"]]["file"])
+    workload = load_json(BENCH / "workloads" / f"{name}.json")
+    from .check import require
+    require(workload)
     return dict(
         bench=bench, cell=cell, config=conf,
         traffic=load_json(BENCH / "traffic" / f"{cell['traffic']}.json"),
-        workload=load_json(BENCH / "workloads" / f"{name}.json"),
+        workload=workload,
         end_to_end=[m for m in bench["end_to_end"]
                     if name in m.get("workloads", [name])],
         per_layer=[m for m in bench["per_layer"]

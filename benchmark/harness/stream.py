@@ -1,8 +1,12 @@
 """A configuration's input stream, made from the seed on the device: the
 scene and its textures (the seed deals them out), the trajectory, every
 frame ray-cast on the card, and the boxes projected from the ground truth
-as offline detections. Frames stay on the device for the run, and the
-stream replays lap after lap."""
+as offline detections. Frames stay on the device for the run.
+
+The configuration's `stream` names the scene, a module of
+`benchmark/gen/scenes/` (or a whole module name), and one of its
+trajectories; `replay` (default true) replays the stream lap after lap,
+and false ends the run with an error at the first frame past its end."""
 
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ import torch
 from benchmark.gen import render_torch
 from benchmark.gen import synthetic as syn
 
-from .core import BenchError, log
+from .core import BenchError, find_module, log
 
 
 class Stream:
@@ -25,19 +29,23 @@ class Stream:
         self.cam = cam
         n = int(stream["frames"])
         t0 = time.perf_counter()
-        if stream["scene"] != "room":
-            raise BenchError(f"unknown scene {stream['scene']!r}")
-        # the room's geometry and its texture pool come from the
+        scene_mod = find_module("benchmark.gen.scenes", stream["scene"])
+        trajectory = scene_mod.TRAJECTORIES.get(stream["trajectory"])
+        if trajectory is None:
+            raise BenchError(
+                f"scene {stream['scene']!r} has no trajectory "
+                f"{stream['trajectory']!r}: {sorted(scene_mod.TRAJECTORIES)}")
+        self.replay = bool(stream.get("replay", True))
+        # the scene's geometry and its texture pool come from the
         # configuration's layout; the seed deals the textures out to the
-        # walls, the floor and the boxes, so that every seed gives the
-        # same sizes in another order
-        self.scene = syn.make_room_scene(
-            int(stream["layout_seed"]), n_objects=int(stream["n_objects"]),
-            closed=True)
+        # surfaces and the boxes, so that every seed gives the same sizes
+        # in another order
+        self.scene = scene_mod.make(int(stream["layout_seed"]),
+                                    int(stream["n_objects"]), n)
         perm = np.random.default_rng(seed).permutation(
             len(self.scene.textures))
         self.scene.textures = [self.scene.textures[j] for j in perm]
-        self.tcw = syn.make_trajectory(n, stream["trajectory"])
+        self.tcw = trajectory(n)
         textures = render_torch.scene_textures(self.scene, device)
         self.gray, self.depth = render_torch.render(self.scene, textures,
                                                     cam, self.tcw)
@@ -56,7 +64,12 @@ class Stream:
             f"{time.perf_counter() - t0:.2f} s")
 
     def index(self, k: int) -> int:
-        """The stream frame of the run's k-th frame: laps repeat."""
+        """The stream frame of the run's k-th frame: laps repeat, or, where
+        the stream does not replay, a frame past its end is an error."""
+        if not self.replay and k >= self.n:
+            raise BenchError(f"frame {k} is past the end of the stream, "
+                             f"which has {self.n} frames and does not "
+                             f"replay")
         return k % self.n
 
     def chunk(self, k0: int, n: int):

@@ -2,7 +2,9 @@
 span of chunks, opened and closed with a pause at each end (the trace was
 seen to lose kernels that run right against its start or stop without
 them), and the launches of the port's hand-written kernels in the same
-span, with the shapes each was given (`kernels.launch`'s arguments)."""
+span, with the shapes each was given (`kernels.launch`'s arguments).
+Each idle gap is named by the port's innermost span that held the host
+over it (`harness/spans.py`) and the device event that ends it."""
 
 from __future__ import annotations
 
@@ -10,6 +12,8 @@ import time
 from collections import defaultdict
 
 import torch
+
+from . import spans
 
 TRACE_MARGIN_S = 0.02
 
@@ -48,11 +52,13 @@ def busy_intervals(events):
     return merged
 
 
-def summarize(events, window_s: float, top: int = 10) -> dict:
+def summarize(events, window_s: float, segs=(), top: int = 10) -> dict:
     """busy seconds (the union of device activity), the event count, the
     device time of each event name, the `top` names by time and the `top`
-    longest gaps between busy intervals, each named by the event that
-    ends it."""
+    longest gaps between busy intervals, each named `<innermost span> |
+    before <event>`: the span of the main thread's segments `segs`
+    (`spans.main_thread_segments`) that holds most of the gap, or
+    `outside_spans`, and the event that ends it."""
     merged = busy_intervals(events)
     busy_ns = sum(e - s for s, e, _ in merged)
     by_name = defaultdict(float)
@@ -60,14 +66,20 @@ def summarize(events, window_s: float, top: int = 10) -> dict:
     for name, _, d in events:
         by_name[name] += d * 1e-9
         count[name] += 1
-    gaps = sorted(((merged[i + 1][0] - merged[i][1]) * 1e-9,
-                   merged[i + 1][2]) for i in range(len(merged) - 1))[::-1]
+    _, named = spans.attribute(spans.idle_gaps(merged), segs)
     return dict(
         busy_s=busy_ns * 1e-9, window_s=window_s, n_events=len(events),
         by_name=dict(by_name), count=dict(count),
         device_ops=[[n, t] for n, t in sorted(by_name.items(),
                                               key=lambda x: -x[1])[:top]],
-        idle_gaps=[[f"before {n}", g] for g, n in gaps[:top]])
+        idle_gaps=longest_gaps(named, top))
+
+
+def longest_gaps(named, top: int = 10) -> list:
+    """The `top` longest of `spans.attribute`'s named gaps, as
+    [`<span> | before <event>`, seconds]."""
+    return [[f"{span} | before {n}", g * 1e-9]
+            for g, span, n in sorted(named, key=lambda g: -g[0])[:top]]
 
 
 class Tracer:
@@ -116,7 +128,11 @@ class Tracer:
         self.frames = frames
         self._window_s = window_s
 
-    def read(self) -> None:
-        """Read the trace, once the run's window has closed."""
-        self.summary = summarize(_cuda_events(self._prof), self._window_s)
+    def read(self, record=None) -> None:
+        """Read the trace, once the run's window has closed, its idle gaps
+        named by the spans of the port's drained `record` (none where it
+        is None)."""
+        segs = spans.main_thread_segments(record) if record else ()
+        self.summary = summarize(_cuda_events(self._prof), self._window_s,
+                                 segs)
         del self._prof

@@ -169,7 +169,7 @@ def _run(args) -> int:
         from eao_fusion_tpu_torch.pipeline.system import System
     except ImportError as exc:
         raise core.BenchError(f"the port is not here: {exc}")
-    from benchmark.harness import roofline, stream as stream_mod, trace
+    from benchmark.harness import roofline, spans, stream as stream_mod, trace
 
     cfg = core.system_config(conf)
     stream = stream_mod.Stream(conf["stream"], conf["system"]["camera"],
@@ -227,9 +227,10 @@ def _run(args) -> int:
         return 0
 
     if args.trace:
-        tracer.read()
+        record = spans.record()
+        tracer.read(record)
         rec = dict(run, trace=tracer.summary, trace_frames=tracer.frames,
-                   launches=tracer.launches)
+                   launches=tracer.launches, record=record)
         metrics = {}
         for m in c["per_layer"]:
             mod = importlib.import_module(f"benchmark.metrics.{m['name']}")

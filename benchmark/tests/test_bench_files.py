@@ -1,7 +1,9 @@
 """Every cell of BENCHMARK.json loads, and names only files that are
-there: its configuration, traffic, workload and driver, a reader for each
-per-layer metric, the numbers its limits name; each configuration builds
-the port's SystemConfig."""
+there: its configuration, its scene and trajectory, traffic, workload and
+driver, a reader for each per-layer metric, the kinds of check its
+capture names (`benchmark/checks/`), each limit yielded by one of those
+kinds or frozen_frames; each configuration builds the port's
+SystemConfig. Every kind module declares what the harness asks of it."""
 
 import importlib
 import json
@@ -11,9 +13,7 @@ import pytest
 from benchmark.harness import check, core
 
 BENCH = json.loads((core.ROOT / "BENCHMARK.json").read_text())
-NUMBERS = {"feature_miss_pct", "desc_bits_pct", "plane_mismatch",
-           "plane_gap", "pose_gap", "ba_gap", "object_mismatch",
-           "object_gap", "object_spread_gap", "frozen_frames"}
+KINDS = check.all_kinds()
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
@@ -24,8 +24,14 @@ def test_cell_loads(cell):
         mod = importlib.import_module(f"benchmark.metrics.{m['name']}")
         assert callable(mod.read)
     assert {m["name"] for m in c["end_to_end"]} == {"fps", "setup_s"}
-    assert set(c["workload"]["limits"]) <= NUMBERS
-    assert set(c["workload"]["capture"]) <= set(check.TARGETS)
+    kinds = check.kind_modules(c["workload"]["capture"])
+    yielded = {n for mod in kinds.values() for n in mod.NUMBERS}
+    for limit in c["workload"]["limits"]:
+        assert limit in yielded or limit == check.FROZEN, limit
+    stream = c["config"]["stream"]
+    scene = core.find_module("benchmark.gen.scenes", stream["scene"])
+    assert callable(scene.make)
+    assert stream["trajectory"] in scene.TRAJECTORIES
     cfg = core.system_config(c["config"])
     cam = c["config"]["system"]["camera"]
     assert (cfg.camera.width, cfg.camera.fx) == (cam["width"], cam["fx"])
@@ -51,3 +57,17 @@ def test_contract_shape():
     for k in ("pose_opt", "ba_edge_full", "ba_edge_chi2", "chol_solve"):
         mod = importlib.import_module(f"benchmark.costs.{k}")
         assert mod.TRACE_NAME.startswith(k)
+
+
+def test_kind_modules():
+    assert KINDS
+    seen = {check.FROZEN}
+    for kind, mod in KINDS.items():
+        mod_name, attr = mod.TARGET
+        assert mod_name.startswith("eao_fusion_tpu_torch.") and attr, kind
+        assert mod.NUMBERS and not seen & set(mod.NUMBERS), kind
+        seen |= set(mod.NUMBERS)
+        for fn in (mod.wrap, mod.numbers, mod.control):
+            assert callable(fn), kind
+        # nothing drawn: every number of the kind is there, and missing
+        assert mod.numbers([]) == dict.fromkeys(mod.NUMBERS), kind

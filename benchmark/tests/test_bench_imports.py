@@ -1,7 +1,8 @@
 """Nothing the harness, its drivers, metric readers or the reference load
 is JAX or the JAX package, by whole top-level names (the port,
 `eao_fusion_tpu_torch`, passes); the reference loads nothing of the port
-either. Each import runs in a fresh interpreter."""
+either, nor do the kinds of check and the scenes until a run installs
+them. Each import runs in a fresh interpreter."""
 
 import subprocess
 import sys
@@ -25,6 +26,10 @@ import benchmark.reference.pose, benchmark.reference.local_ba
 import benchmark.reference.features, benchmark.reference.planes
 import benchmark.reference.objects, benchmark.reference.lie
 import benchmark.gen.synthetic, benchmark.gen.render_torch
+import pkgutil, importlib, benchmark.checks, benchmark.gen.scenes
+for pkg in (benchmark.checks, benchmark.gen.scenes):
+    for m in pkgutil.iter_modules(pkg.__path__):
+        importlib.import_module(pkg.__name__ + "." + m.name)
 """
 
 

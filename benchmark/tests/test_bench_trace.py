@@ -1,10 +1,10 @@
 """The idle-share, event-count and roofline arithmetic on a synthetic
-trace."""
+trace, and its idle gaps named by the host's spans."""
 
 import pytest
 
 from benchmark.costs import ba_edge_full, chol_solve, pose_opt
-from benchmark.harness import peaks, trace
+from benchmark.harness import peaks, spans, trace
 from benchmark.metrics import (ba_roofline_pct, device_events_per_frame,
                                device_idle_pct, epilogue_pct,
                                kf_per_100_frames, pose_opt_roofline_pct)
@@ -31,9 +31,32 @@ def test_summary():
     assert s["n_events"] == 7
     assert s["by_name"]["pose_opt_kernel"] == pytest.approx(42e-6)
     assert s["device_ops"][0] == ["pose_opt_kernel", pytest.approx(42e-6)]
-    assert s["idle_gaps"][0] == ["before pose_opt_kernel",
+    assert s["idle_gaps"][0] == ["outside_spans | before pose_opt_kernel",
                                  pytest.approx(50e-6)]
     assert len(s["idle_gaps"]) == 5
+
+
+def test_idle_gaps_named_by_the_innermost_span():
+    # gaps: [15, 20) before the copy, [25, 75) before K1, [95, 100) and
+    # [122, 130) and [138, 140) µs; the host was in `track` over [0, 60),
+    # in its child `pose` over [30, 60), in `gate` over [60, 70)
+    segs = spans.innermost_segments([(0, 60 * US, "track"),
+                                     (30 * US, 60 * US, "pose"),
+                                     (60 * US, 70 * US, "gate")])
+    s = trace.summarize(_events(), window_s=400e-6, segs=segs)
+    names = [n for n, _ in s["idle_gaps"]]
+    # [25, 75): 30 in pose, 10 in gate, 5 in track, 5 outside
+    assert names[0] == "pose | before pose_opt_kernel"
+    # gaps of equal length in time order
+    assert names[1:] == ["outside_spans | before ba_edge_full_kernel",
+                         "track | before Memcpy HtoD",
+                         "outside_spans | before pose_opt_kernel",
+                         "outside_spans | before chol_solve_kernel"]
+    assert [g for _, g in s["idle_gaps"]] == pytest.approx(
+        [50e-6, 8e-6, 5e-6, 5e-6, 2e-6])
+    for name, _ in s["idle_gaps"]:
+        span, kernel = name.split(" | before ")
+        assert span in {"track", "pose", "gate", spans.OUTSIDE} and kernel
 
 
 def _run():

@@ -4,7 +4,8 @@ prints for each a JSON line with the numbers the run compares
 (`program`) and the control's (`control`): the same numbers, worked out
 by the harness's own `check.numbers` once every captured answer of the
 program has been replaced by the control's, the plain reference computed
-in bfloat16 (its solves in float32). With `--harness-sees control` the
+in bfloat16 (its solves in float32), which each kind's module gives
+(`benchmark/checks/<kind>.py` `control`). With `--harness-sees control` the
 run itself is judged on the control's numbers, and `correct` is what
 the harness then printed. With `--fault`, a fault is planted in the
 program first (see FAULTS), and the numbers are the faulty program's.
@@ -27,83 +28,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from benchmark import run as bench_run  # noqa: E402
 from benchmark.harness import check  # noqa: E402
-from benchmark.reference import features as rfeat  # noqa: E402
-from benchmark.reference import local_ba, objects as robj  # noqa: E402
-from benchmark.reference import planes as rplanes  # noqa: E402
-from benchmark.reference import pose as rpose  # noqa: E402
-
-BF16 = torch.bfloat16
-
-
-def bf16(a: np.ndarray) -> np.ndarray:
-    """`a` rounded to bfloat16, in its own dtype."""
-    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
-    return t.to(BF16).float().numpy().astype(a.dtype)
-
-
-def _features(it) -> dict:
-    ref = rfeat.extract(it["img"].cpu().numpy(), it["p"], quant=bf16)
-    out = {k: v.clone() for k, v in it["out"].items()}
-    n = out["uv"].shape[0]
-    sc = float(it["p"]["scale_factor"])
-    uv = np.zeros((n, 2), np.float32)
-    level = np.zeros(n, np.int32)
-    packed = np.zeros((n, 8), np.int64)
-    for i, ((l, y, x), (_, bits)) in enumerate(list(ref.items())[:n]):
-        uv[i] = (x * sc ** l, y * sc ** l)
-        level[i] = l
-        packed[i] = (bits.reshape(8, 32).astype(np.int64)
-                     << np.arange(32)).sum(1)
-    packed = np.where(packed >= 2 ** 31, packed - 2 ** 32, packed)
-    valid = np.arange(n) < len(ref)
-    return dict(uv=torch.as_tensor(uv), level=torch.as_tensor(level),
-                valid=torch.as_tensor(valid),
-                desc_packed=torch.as_tensor(packed.astype(np.int32)))
-
-
-def _planes(it) -> dict:
-    ref = rplanes.segment(it["depth"].cpu().numpy(), it["cam"], it["p"],
-                          quant=bf16)
-    P = it["out"]["coeffs"].shape[0]
-    B = int(it["p"]["max_boundary_points"])
-    k = min(len(ref["n_inliers"]), P)
-    coeffs = np.zeros((P, 4), np.float32)
-    coeffs[:k] = ref["coeffs"][:k]
-    n_in = np.zeros(P, np.int32)
-    n_in[:k] = ref["n_inliers"][:k]
-    bnd = np.zeros((P, B), bool)
-    for j in range(k):
-        bnd[j, :ref["n_boundary"][j]] = True
-    return dict(coeffs=torch.as_tensor(coeffs), n_inliers=torch.as_tensor(
-        n_in), valid=torch.as_tensor(np.arange(P) < k),
-        boundary_valid=torch.as_tensor(bnd))
-
-
-def _pose(it):
-    o = it["obs"]
-    return rpose.solve(it["pose0"], o[0], o[1], o[2], o[3], o[4],
-                       it["planes"], it["cam"], it["p"], BF16).float()
-
-
-def _local_ba(it):
-    cams, _ = local_ba.solve(it["prob"], it["planes"], it["cam"], it["p"],
-                             dtype=BF16, **it["kw"])
-    return cams.float()
-
-
-def _object(it) -> dict:
-    ref = robj.update(*check.object_args(it), quant=bf16)
-    return {k: torch.as_tensor(np.asarray(v)) for k, v in ref.items()}
-
-
-# the control's answer to a captured call, in the program's form
-CONTROL = dict(features=_features, planes=_planes, pose=_pose,
-               local_ba=_local_ba, object=_object)
 
 
 def plant(fault: str, setattr_=setattr) -> None:
@@ -197,7 +125,7 @@ def read(workload: str, seed: int, seconds: float, rehearse: bool = False,
             return prog
         for kind, items in cap.items.items():
             for it in items:
-                it["out"] = CONTROL[kind](it)
+                it["out"] = cap.kinds[kind].control(it)
         rec["control"] = numbers(cap, run, truth, est, names)
         return rec["control"] if harness_sees == "control" else prog
     check.numbers = both

@@ -125,7 +125,6 @@ def traced_analysis(rec, events, frames: int) -> dict:
     segs = spans.main_thread_segments(rec)
     total, named = spans.attribute(gaps, segs)
     idle = sum(total.values())
-    top = sorted(named, key=lambda g: -g[0])[:10]
 
     # syncs against blocking copies, by stage, in the traced chunks
     traced = [c for c, _ in spans.split_chunks(rec, frames)[0]]
@@ -153,7 +152,7 @@ def traced_analysis(rec, events, frames: int) -> dict:
         named_idle_share=1 - total.get(spans.OUTSIDE, 0) / idle,
         idle_by_span={k: v * 1e-9 for k, v in
                       sorted(total.items(), key=lambda x: -x[1])},
-        idle_gaps=[[f"{s} | before {k}", g * 1e-9] for g, s, k in top],
+        idle_gaps=trace.longest_gaps(named),
         traced_coverage=coverage(rec, traced),
         syncs_and_copies=dict(by_stage))
 
